@@ -1,5 +1,6 @@
-"""MS-SLAM on PyTorch and CUDA: the stereo visual main path of `ms_slam_tpu`
-ported to one NVIDIA H100.
+"""MS-SLAM on PyTorch and CUDA: the stereo visual main path of `ms_slam_tpu`,
+with sliding-window sparsification and relocalization, ported to one NVIDIA
+H100.
 
 The JAX package `ms_slam_tpu` is the reference; this package mirrors its
 module paths, public names, argument order and array layouts, and is held
@@ -12,9 +13,11 @@ keypoint patch gather, is a hand-written CUDA kernel
 (`csrc/patch_gather.cu`, wrapper `ops.orb.extract_patches_canvas`).
 
 Layer map:
-  ops/       geometry, features, matching, pose and bundle adjustment
-  models/    fixed-capacity map pools (MapState) + numpy state conversion
-  pipeline/  frontend, tracking, local mapping, System facade
+  ops/       geometry, features, matching, pose and bundle adjustment, the
+             sparsification selector, PnP
+  models/    fixed-capacity map pools (MapState) + numpy state conversion,
+             the BoW vocabulary and keyframe database
+  pipeline/  frontend, tracking, local mapping, sparsification, System
   utils/     by-path loader for the reference's numpy-only utilities
 """
 

@@ -5,13 +5,17 @@ Port of the stereo visual subset of `ms_slam_tpu/pipeline/system.py`:
 previous in-flight frame completes behind it (pipeline depth 2, as the
 reference), so host keyframe decisions lag the same frames as there.
 
+With `sparsify=True` the sliding-window sparsifier runs after each
+keyframe's local-mapping window and the keyframe database (KFDB) holds a
+BoW row per keyframe; sparsified keyframes are its retrieval candidates.
+A tracking failure goes through the reference's loss path: relocalization
+(KFDB shortlist, or a brute appearance sweep without a KFDB, then
+prior-free PnP), else the RECENTLY_LOST grace window, LOST, and after
+enough lost frames a fresh map in the Atlas labels.
+
 The reference's tunnel workarounds (device-scalar cache, upload thread,
-batched fetches with `_complete_batch`) are not carried over. Configurations
-outside the slice (sparsification, loop closing, IMU, fisheye) raise at
-construction, and relocalization raises, so a tracking failure is loud;
-what the reference does after a relocalization attempt
-(`_extrapolate_pose`, `_redispatch_inflight`, the RECENTLY_LOST window)
-comes with relocalization.
+batched fetches with `_complete_batch`) are not carried over. Loop
+closing, IMU and fisheye configurations raise at construction.
 """
 from __future__ import annotations
 
@@ -25,11 +29,13 @@ import numpy as np
 import torch
 
 from ..models import map_state as M
+from ..models.vocab import KeyFrameDatabase, place_scores
 from ..ops.lie import rot_to_quat
 from ..ops.orb import OrbConfig
 from . import mapping_ops as mo
 from . import tracking_ops as to
 from .frontend import Calib, FrameData, process_stereo_stacked
+from .sparsification import Sparsifier
 
 OK, NOT_INITIALIZED, RECENTLY_LOST, LOST = "OK", "NOT_INIT", "RECENTLY_LOST", "LOST"
 PIPELINE_DEPTH = 2
@@ -38,8 +44,8 @@ PIPELINE_DEPTH = 2
 @dataclass
 class SystemConfig:
     """The reference's SystemConfig fields that the stereo visual path
-    reads, plus the switches that select paths not ported yet (they must
-    stay off)."""
+    reads, with its defaults, plus the switches that select paths not
+    ported yet (`loop_closing`, `use_imu`: they must stay off)."""
 
     calib: Calib = None
     orb: OrbConfig = None
@@ -51,10 +57,20 @@ class SystemConfig:
     n_triangulate_neighbors: int = 4
     n_fixed_cams: int = 4
     ba_iters: int = 8
+    # sparsification (ref Sparsification.* yaml keys)
     sparsify: bool = False
+    sparsify_n: int = 75
+    sparsify_lambda: float = 500.0
+    sparsify_grid_lambda: float = 10.0
+    sparsify_window: int = 10
+    sparsify_queue_min: int = 4
+    nonlocal_kf: int = 8
     loop_closing: bool = False
     use_imu: bool = False
     localization_only: bool = False
+    # RECENTLY_LOST grace window before LOST, in seconds (ref
+    # time_recently_lost, src/Tracking.cc:1947-2018)
+    t_recently_lost: float = 5.0
 
 
 @dataclass
@@ -77,18 +93,24 @@ class InFlight:
 
 class System:
     def __init__(self, cfg: SystemConfig, device=None):
-        for flag in ("sparsify", "loop_closing", "use_imu"):
+        """device: where the map and every step run; None means the CUDA
+        card, and raises when there is none (the CPU only on request)."""
+        for flag in ("loop_closing", "use_imu"):
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f"SystemConfig.{flag} is not ported yet (ROADMAP queue 1)")
         if cfg.calib.is_fisheye_stereo or cfg.calib.model != 0:
             raise NotImplementedError("fisheye cameras are not ported yet")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "System: no CUDA device; pass device='cpu' to run on "
+                    "the CPU")
+            device = "cuda"
         self.cfg = cfg
         self.calib = cfg.calib
         self.orb = cfg.orb
-        self.device = torch.device(device) if device is not None else (
-            torch.device("cuda") if torch.cuda.is_available()
-            else torch.device("cpu"))
+        self.device = torch.device(device)
         self.ms = M.empty_map(cfg.map, self.device)
         # per-point observation counts + observer bitmask: the observation
         # graph changes only at keyframe rate, so tracking reads these
@@ -120,6 +142,21 @@ class System:
         self._lost_ts: Optional[float] = None
         self._lost_frames = 0
         self._pending_kf_info = None
+        # Atlas labels (host): the map id of each keyframe slot; a fresh map
+        # starts after irrecoverable loss (ref Tracking::CreateMapInAtlas)
+        self.active_map = 0
+        self.kf_maps: list[int] = []
+        # RANSAC draws of relocalization
+        self._reloc_gen = torch.Generator(device=self.device)
+        self._reloc_gen.manual_seed(0xE10C)
+        # the sparsified-keyframe database is System state: relocalization
+        # reads it with loop closing off
+        self.kf_db = None
+        self._sparsifier = None
+        if cfg.sparsify:
+            self.kf_db = KeyFrameDatabase(max_kf=cfg.map.max_kf,
+                                          device=self.device)
+            self._sparsifier = Sparsifier(self)
 
     # ------------------------------------------------------------------
     # public API
@@ -178,20 +215,31 @@ class System:
     def map_points_in_map(self) -> int:
         return int(self.ms.mp_valid.sum())
 
+    def compressed_map_points_in_map(self) -> int:
+        return int((self.ms.mp_valid & self.ms.mp_sparsified).sum())
+
     def keyframes_in_map(self) -> int:
         return int(self.ms.kf_valid.sum())
 
     def memory_stats(self) -> dict:
-        """Live map memory: bytes of live keyframe features (56 B each) and
-        live map points (80 B each). Without sparsification nothing is
-        removed, so the reduction is 0."""
+        """Live map memory, the MS-SLAM headline metric: bytes of live
+        keyframe features (56 B each) and live map points (80 B each),
+        against the same map plus what the selector removed (its deleted
+        points and the feature slots its compaction freed, both counted by
+        `sparsify_window`)."""
         self._flush_pipeline()
         kp_live = int((self.ms.kp_valid & self.ms.kf_valid[:, None]).sum())
         mp_live = self.map_points_in_map()
-        live = kp_live * 56 + mp_live * 80
-        return {"live_bytes": live, "without_sparsification_bytes": live,
-                "reduction": 0.0, "kp_live": kp_live, "mp_live": mp_live,
-                "mp_selector_killed": 0, "mp_compressed": 0}
+        stats = self._sparsifier.stats if self._sparsifier else {}
+        killed = stats.get("killed", 0)
+        feat_b, mp_b = 56, 80
+        live = kp_live * feat_b + mp_live * mp_b
+        without = live + killed * mp_b + stats.get("slots_freed", 0) * feat_b
+        return {"live_bytes": live, "without_sparsification_bytes": without,
+                "reduction": 1.0 - live / max(without, 1),
+                "kp_live": kp_live, "mp_live": mp_live,
+                "mp_selector_killed": killed,
+                "mp_compressed": self.compressed_map_points_in_map()}
 
     def print_time_stats(self, file=None):
         """Per-stage host timing summary."""
@@ -207,7 +255,11 @@ class System:
                   f"ms {a.sum():7.2f}s", file=file)
 
     def shutdown(self):
+        """Flush the pipeline and sparsify every keyframe left (ref
+        ShutdownMapCompressing)."""
         self._flush_pipeline()
+        if self._sparsifier is not None:
+            self._sparsifier.finish()
 
     # ------------------------------------------------------------------
     # trajectory export
@@ -272,6 +324,8 @@ class System:
         self.n_mp += int(n_new)
         self.ref_kf = kf_slot
         self.last_kf_frame = self.frame_id
+        if self.kf_db is not None:
+            self.kf_db.set_row(kf_slot, frame.feats.desc, frame.feats.valid)
         self.last_R = np.eye(3, dtype=np.float32)
         self.last_t = np.zeros(3, dtype=np.float32)
         self._ref_pose_np = (self.last_R, self.last_t)
@@ -367,21 +421,146 @@ class System:
             self._create_keyframe(fl, R_np, t_np)
         self._record(fl.timestamp, lost=False, frame_id=fl.frame_id)
 
+    def _adopt_reloc(self, rl: "to.TrackOut", timestamp: float,
+                     frame_id: int):
+        """Continue tracking from a relocalized pose."""
+        self.state = OK
+        self._lost_frames = 0
+        self._lost_ts = None
+        self.last_R = rl.R.cpu().numpy().astype(np.float32)
+        self.last_t = rl.t.cpu().numpy().astype(np.float32)
+        self._Rt_dev = (rl.R, rl.t)
+        self._Rt_dev2 = None
+        self.last_matched = rl.matched_mp
+        self._refresh_ref_pose()
+        self._record(timestamp, lost=False, frame_id=frame_id)
+
     def _on_track_failure(self, fl: InFlight):
-        """Tracking failed for frame fl: relocalize, or enter the
+        """Tracking failed for frame fl: relocalize now, or enter the
         RECENTLY_LOST grace window (ref src/Tracking.cc:1947-2018)."""
         self.vel = None
         self._has_vel = False
-        self._relocalize(fl.frame)
+        rl = self._relocalize(fl.frame)
+        if rl is not None:
+            self._adopt_reloc(rl, fl.timestamp, fl.frame_id)
+            self._redispatch_inflight()
+            return
+        if self.n_kf > 10:
+            # grace window: keep extrapolating and retrying relocalization
+            self.state = RECENTLY_LOST
+            if self._lost_ts is None:
+                self._lost_ts = fl.timestamp
+        else:
+            self.state = LOST
+            self._lost_frames += 1
+        self._record(fl.timestamp, lost=True, frame_id=fl.frame_id)
+        self._extrapolate_pose()
+        # newer in-flight frames were tracked from a bad pose: reprocess
+        # them through the loss path
+        stale = list(self._inflight)
+        self._inflight.clear()
+        for s in stale:
+            self._track_lost(s.frame, s.timestamp, frame_id=s.frame_id)
 
     def _track_lost(self, frame: FrameData, timestamp: float,
                     frame_id: Optional[int] = None):
-        """Per-frame handling in RECENTLY_LOST / LOST: retry
-        relocalization."""
-        self._relocalize(frame)
+        """Per-frame handling in RECENTLY_LOST / LOST (ref
+        Tracking.cc:1991-2018): retry relocalization, carry the pose
+        forward, and start a fresh Atlas map when the loss is
+        irrecoverable."""
+        fid = self.frame_id if frame_id is None else frame_id
+        rl = self._relocalize(frame)
+        if rl is not None:
+            self.vel = None
+            self._has_vel = False
+            self._adopt_reloc(rl, timestamp, fid)
+            return
+        if self.state == RECENTLY_LOST:
+            self._extrapolate_pose()
+            if (self._lost_ts is not None
+                    and timestamp - self._lost_ts > self.cfg.t_recently_lost):
+                self.state = LOST
+        if self.state == LOST:
+            self._lost_frames += 1
+            if (self._lost_frames > int(2 * self.calib.fps)
+                    and self.n_kf >= 5
+                    and (self.cfg.map.max_kf - self.n_kf
+                         + len(self.kf_free)) >= 8):
+                self.active_map += 1
+                self.state = NOT_INITIALIZED
+                self.last_matched = None
+                self._Rt_dev = None
+                self._lost_frames = 0
+                self._lost_ts = None
+        self._record(timestamp, lost=True, frame_id=fid)
 
-    def _relocalize(self, frame: FrameData):
-        raise NotImplementedError("relocalization: ROADMAP queue 1 item 9")
+    def _extrapolate_pose(self):
+        """Carry the pose forward through a blackout: constant velocity,
+        else hold (the reference's IMU branch needs use_imu)."""
+        if self.vel is not None:
+            T = self.vel @ self.current_pose()
+            self.last_R = T[:3, :3].astype(np.float32)
+            self.last_t = T[:3, 3].astype(np.float32)
+        self._Rt_dev = None
+
+    def _redispatch_inflight(self):
+        """Re-run newer in-flight frames after an event that invalidated
+        their inputs (relocalization): their tracks rerun from the
+        corrected pose."""
+        stale = list(self._inflight)
+        self._inflight.clear()
+        saved_fid = self.frame_id
+        for s in stale:
+            self.frame_id = s.frame_id
+            self._dispatch_track(s.frame, s.timestamp)
+        self.frame_id = saved_fid
+
+    def _relocalize(self, frame: FrameData) -> Optional["to.TrackOut"]:
+        """Relocalization (ref Tracking::Relocalization): candidates from
+        the sparsified-keyframe database (a brute appearance sweep over all
+        valid keyframes when there is none) -> appearance matching ->
+        prior-free PnP RANSAC -> pose optimization -> the widening
+        projection refinement. Returns the refined track or None."""
+        f = frame.feats
+        if self.kf_db is not None and self.kf_db.present.any():
+            # tf-idf shortlist, exact rescoring of the shortlist only
+            cands, _ = self.kf_db.query_rescored(
+                self.ms.kp_desc, self.ms.kp_valid, f.desc, f.valid, k=5)
+        else:
+            # brute appearance sweep; keyframes not valid score -1
+            scores = place_scores(self.ms.kp_desc, self.ms.kp_valid,
+                                  self.ms.kf_valid, f.desc,
+                                  f.valid).cpu().numpy()
+            order = np.argsort(-scores)[:5]
+            cands = [int(i) for i in order if scores[i] > 0.05]
+        best = None
+        for c in cands:
+            out = to.track_by_pnp(self.ms, self.calib, frame, c,
+                                  self._reloc_gen)
+            n = int(out.n_inliers)                  # sync: host choice
+            if n >= 15 and (best is None or n > best[0]):
+                best = (n, c, out)
+        if best is None:
+            return None
+        n_best, c, out = best
+        # refine: a coarse radius-10 harvest around the PnP pose, then a
+        # narrow radius-3 pass with a tighter ratio (ref Tracking.cc:3741)
+        obs_c = self.ms.obs_mp[c]
+        n_out = n_best
+        for radius, ratio in ((10.0, 0.9), (3.0, 0.75)):
+            ref = to.track_points(self.ms, self.calib, self.orb, frame,
+                                  out.R, out.t, obs_c.clamp(min=0),
+                                  obs_c >= 0, radius, ratio)
+            n_ref = int(ref.n_inliers)              # sync: host choice
+            if n_ref < n_out:
+                break
+            out, n_out = ref, n_ref
+        self.ref_kf = c
+        # a hit in another map moves the active-map label with it
+        if c < len(self.kf_maps) and self.kf_maps[c] != self.active_map:
+            self.active_map = self.kf_maps[c]
+        self.vel = None
+        return out
 
     def _flush_pipeline(self):
         """Complete every in-flight frame."""
@@ -406,11 +585,13 @@ class System:
         if self.kf_free:
             slot = self.kf_free.pop()
             self._on_kf_slot_reuse(slot)
+            self.kf_maps[slot] = self.active_map
             return slot
         if self.n_kf >= self.cfg.map.max_kf:
             return None
         slot = self.n_kf
         self.n_kf += 1
+        self.kf_maps.append(self.active_map)
         return slot
 
     def _evict_oldest_kf(self):
@@ -427,17 +608,23 @@ class System:
             self.ms = M.delete_keyframes(self.ms, mask)
             self._obs_dirty = True
             self._free_keyframes([s])
+            if self.kf_db is not None:
+                self.kf_db.erase(s)
             return
 
     def _on_kf_slot_reuse(self, slot: int):
         """Before overwriting a recycled slot: trajectory entries anchored
-        to it become absolute poses."""
+        to it become absolute poses, and the stages forget the slot."""
         if any(e.ref_kf == slot for e in self.trajectory):
             T_rw = self._kf_pose(slot)
             for e in self.trajectory:
                 if e.ref_kf == slot:
                     e.T_cr = e.T_cr @ T_rw
                     e.ref_kf = -1
+        if self._sparsifier is not None:
+            self._sparsifier.forget(slot)
+        if self.kf_db is not None:
+            self.kf_db.erase(slot)
 
     def _create_keyframe(self, fl: InFlight, R_np, t_np):
         cfg = self.cfg
@@ -464,6 +651,10 @@ class System:
         # the keyframe's observation row is the motion-model candidate set
         # of the next dispatched frame (cloned: later steps write obs_mp)
         self.last_matched = self.ms.obs_mp[slot].clone()
+        if self.kf_db is not None:
+            # BoW row at creation (ref LocalMapping::ProcessNewKeyFrame)
+            self.kf_db.set_row(slot, fl.frame.feats.desc,
+                               fl.frame.feats.valid)
         # the dispatch-time pose is the tracked pose; the BA-refined one
         # arrives with the deferred info at the next completion
         self._ref_pose_np = (R_np, t_np)
@@ -478,7 +669,9 @@ class System:
         return None, 0.9
 
     def _integrate_kf_info(self, slot: int, info: np.ndarray):
-        """Apply a keyframe step's packed scalars to the host schedule."""
+        """Apply a keyframe step's packed scalars to the host schedule
+        (counters, BA-refined ref pose, keyframe free-list, the sparsifier's
+        window feed)."""
         Wk = self.cfg.map.window_kf
         self.n_mp += int(info[0]) + int(info[1])
         self.n_inliers_ref = int(info[5])
@@ -487,6 +680,9 @@ class System:
                                  info[15:18].astype(np.float32))
         self._free_keyframes([int(v) for v in info[18 + Wk:18 + 2 * Wk]
                               if v >= 0])
+        if self._sparsifier is not None:
+            self._sparsifier.observe_window(
+                [int(v) for v in info[18:18 + Wk] if v >= 0])
 
     def _free_keyframes(self, culled: list[int]):
         """Feed culled keyframe slots to the free-list; trajectory entries
@@ -495,6 +691,8 @@ class System:
             if c in self.kf_free:
                 continue
             self.kf_free.append(c)
+            if self._sparsifier is not None:
+                self._sparsifier.forget(c)
             if c not in self.kf_order:
                 continue
             i = self.kf_order.index(c)

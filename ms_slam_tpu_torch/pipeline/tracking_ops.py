@@ -2,8 +2,9 @@
 
 Port of `ms_slam_tpu/pipeline/tracking_ops.py` (visual path): motion-model
 association with motion-only LM, the widened retry and the appearance
-fallback, the local-keyframe vote, local-map tracking, point statistics
-and the keyframe-decision counters.
+fallback, the local-keyframe vote, local-map tracking, point statistics,
+the keyframe-decision counters, and the prior-free PnP step that
+relocalization runs per candidate keyframe.
 
 The reference switches the retry and the fallback with `lax.cond`; here
 they are host branches on `n_inliers`, one device sync each (marked
@@ -18,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..models import map_state as M
-from ..ops import matching, pose_opt
+from ..ops import matching, pnp, pose_opt
 from ..ops.indexing import add_at_, set_at_, top_k
 from ..ops.orb import OrbConfig
 from .frontend import Calib, FrameData
@@ -79,6 +80,36 @@ def track_by_appearance(ms: M.MapState, calib: Calib, frame: FrameData,
     mp = torch.where(has, kf_obs[mm.idx_b.clamp(min=0).long()], -1)
     has &= mp >= 0
     X = ms.mp_pos[mp.clamp(min=0).long()]
+    res = pose_opt.pose_optimize(
+        calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
+        frame.sigma2, has)
+    matched = torch.where(res.inlier, mp, -1).to(torch.int32)
+    return TrackOut(R=res.R, t=res.t, matched_mp=matched,
+                    n_matched=mm.n_matches, n_inliers=res.n_inliers)
+
+
+def track_by_pnp(ms: M.MapState, calib: Calib, frame: FrameData, kf: int,
+                 generator: torch.Generator) -> TrackOut:
+    """Prior-free relocalization against one candidate keyframe:
+    appearance matching -> batched PnP RANSAC -> motion-only pose
+    optimization (ref Tracking::Relocalization: SearchByBoW +
+    MLPnPsolver::iterate + PoseOptimization). When PnP is not ok the
+    optimization starts from the candidate keyframe's own pose."""
+    params = calib.params_array(frame.u_right.device)
+    f = frame.feats
+    kf_obs = ms.obs_mp[kf]
+    kf_has = ms.kp_valid[kf] & (kf_obs >= 0)
+    mm = matching.mutual_match(f.desc, f.valid, ms.kp_desc[kf], kf_has,
+                               max_dist=matching.TH_LOW, nn_ratio=0.75,
+                               angle_a=f.angle, angle_b=ms.kp_angle[kf])
+    has = mm.idx_b >= 0
+    mp = torch.where(has, kf_obs[mm.idx_b.clamp(min=0).long()], -1)
+    has &= mp >= 0
+    X = ms.mp_pos[mp.clamp(min=0).long()]
+    res_pnp = pnp.pnp_ransac(calib.model, params, X, f.xy, frame.sigma2,
+                             has, generator, n_hyp=256, min_inliers=10)
+    R0 = torch.where(res_pnp.ok, res_pnp.R, ms.kf_R[kf])
+    t0 = torch.where(res_pnp.ok, res_pnp.t, ms.kf_t[kf])
     res = pose_opt.pose_optimize(
         calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
         frame.sigma2, has)

@@ -49,3 +49,22 @@ def test_patch_gather_refuses_other_devices():
                                   n=4))
     with pytest.raises(ValueError, match="no patch gather"):
         orb.extract_patches_canvas(canvas, bi, ys, xs)
+
+
+@pytest.mark.cuda
+def test_argmin_ties_first_index_on_card():
+    """bow_vector's word votes take the first of tied Hamming minima on the
+    card too, as jnp.argmin does (tests/test_torch_relocalization.py pins
+    the CPU side)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.models import vocab
+    d = torch.randint(0, 4, (512, 300), device="cuda")
+    d[:, [7, 11]] = -1
+    assert bool((torch.argmin(d, dim=1) == 7).all())
+    cb = vocab.make_codebook(16, device="cuda")
+    cb[9] = cb[2]
+    h = vocab.bow_vector(cb, cb[[2, 2]],
+                         torch.ones(2, dtype=torch.bool, device="cuda"))
+    assert h[2].item() == pytest.approx(2 / 3)
+    assert h[9].item() == pytest.approx(1 / 3)
