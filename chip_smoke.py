@@ -9,7 +9,11 @@ Phases (any failure exits non-zero; there is no CPU path):
   2. build: compiles the hand-written CUDA kernels from the sources in the
      checkout (ms_slam_tpu_torch/csrc) into ms_slam_tpu_torch/_build;
   3. kernel vs plain: the patch-gather kernel against its plain PyTorch
-     version at the main path's shapes, bit for bit, with CUDA-event times;
+     version at the main path's shapes, bit for bit; then the kernel's own
+     time (200 launches of its C entry point between two CUDA events, L2
+     warm; one event pair per launch after a 256 MiB write, L2 cold) beside
+     its bound (bytes over 3.35 TB/s), the plain version and the nearest
+     single PyTorch call;
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -31,9 +35,15 @@ Phases (any failure exits non-zero; there is no CPU path):
      phase 4's windows, on the card against the CPU (printed, not held:
      the card's float scatter-adds sum in another order);
   then a JSON line of per-kernel results and the final JSON status line.
+
+Options, for work on the kernel: --kernel-only stops after phase 3 and
+prints no status line; --parent DIR also builds the patch_gather.cu of
+another checkout of this repository (same C interface) and times the two
+kernels in turns in phase 3: parent, this, this, parent.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -46,6 +56,7 @@ N_FRAMES = 100
 H, W = 384, 1248
 FX = 718.856
 BASELINE = 0.537
+HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 
 
 def _check(cond: bool, msg: str):
@@ -68,11 +79,16 @@ def phase_build():
     t0 = time.perf_counter()
     _native.build("patch_gather")
     _native.load("patch_gather")
-    print(f"# build: patch_gather.cu in {time.perf_counter() - t0:.2f} s")
+    print(f"# build: patch_gather.cu in {time.perf_counter() - t0:.2f} s; "
+          "nvcc -Xptxas -v said:")
+    for line in _native.build_log.get("patch_gather", "").splitlines():
+        if "ptxas info" in line and "Compiling" not in line:
+            print(f"#   {line.strip()}")
 
 
 def _cuda_ms(fn, n=50, warmup=5):
-    """Median of n CUDA-event timings of fn() after warm-up, in ms."""
+    """Median of n CUDA-event timings of fn() after warm-up, in ms. One
+    event pair per call: the span holds the host's time inside fn() too."""
     for _ in range(warmup):
         fn()
     times = []
@@ -87,9 +103,44 @@ def _cuda_ms(fn, n=50, warmup=5):
     return float(np.median(times))
 
 
-def phase_kernel():
-    """Patch gather at B=2, H=384, Wc=5888, n=2048 per image, with centres
-    beyond all four clip edges."""
+def _run_ms(fn, n=200, warmup=20, reps=5):
+    """ms per fn() in a run of n back-to-back calls between two CUDA events
+    (the caches stay warm, the host stays ahead of the device): median of
+    reps such runs."""
+    for _ in range(warmup):
+        fn()
+    per_call = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        per_call.append(a.elapsed_time(b) / n)
+    return float(np.median(per_call))
+
+
+def _cold_ms(fn, flush, n=50, warmup=3):
+    """Median ms of fn() with the L2 cache cold: `flush` (larger than the
+    50 MB L2) is overwritten before each call, outside the event pair."""
+    pairs = []
+    for _ in range(warmup + n):
+        flush.fill_(1.0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs[warmup:]]))
+
+
+def _kernel_inputs():
+    """Patch-gather inputs at the main path's shapes (B=2, H=384, Wc=5888,
+    2048 keypoints per image), with centres beyond all four clip edges."""
     from ms_slam_tpu_torch.ops import orb
     B, Hc, n = 2, H, 2048
     _, Wc, _ = orb.canvas_layout(H, W, orb.OrbConfig(n_features=2048,
@@ -108,19 +159,128 @@ def phase_kernel():
     xs[:8] = torch.tensor([0, Wc - 1, 3000, 10, -5, Wc + 2, 40, Wc - 3],
                           dtype=torch.int32)
     bi = torch.arange(B, device=dev, dtype=torch.int32).repeat_interleave(n)
+    return canvas, bi, ys, xs
+
+
+def _c_launch(c_fn, canvas, bi, ys, xs, out):
+    """A closure that calls a kernel's C entry point directly: no checks,
+    no allocation, so a run of calls keeps the device busy."""
+    import ctypes
+    c_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    c_fn.restype = ctypes.c_int
+    B, Hc, Wc = canvas.shape
+    args = (canvas.data_ptr(), bi.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+            out.data_ptr(), bi.shape[0], B, Hc, Wc,
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        rc = c_fn(*args)
+        _check(rc == 0, f"kernel launch failed: CUDA error {rc}")
+    launch.tensors = (canvas, bi, ys, xs, out)    # keep the pointers alive
+    return launch
+
+
+def _build_parent(parent_dir):
+    """The patch-gather kernel of another checkout (same C interface),
+    built beside this one's for a comparison in one call."""
+    import ctypes
+    import os
+
+    from ms_slam_tpu_torch.ops import _native
+    src = os.path.join(parent_dir, "ms_slam_tpu_torch", "csrc",
+                       "patch_gather.cu")
+    lib = os.path.join(_native.BUILD_DIR, "libpatch_gather_parent.so")
+    subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(lib).msslam_patch_gather_f32
+
+
+def phase_kernel(parent_dir=None):
+    """Patch gather at the main path's shapes: bit for bit against the plain
+    version through the wrapper, then the kernel's own time (its C entry
+    point, output allocated once) with the L2 cache warm and cold, beside
+    its bound, the plain version and the nearest single PyTorch call."""
+    from ms_slam_tpu_torch.ops import orb
+    canvas, bi, ys, xs = _kernel_inputs()
+    B, Hc, Wc = canvas.shape
+    n = bi.shape[0]
     out = orb.extract_patches_canvas(canvas, bi, ys, xs)
     ref = orb.extract_patches_canvas_plain(canvas, bi, ys, xs)
     torch.cuda.synchronize()
-    _check(out.shape == ref.shape == (B * n, 45, 45), "patch shape")
+    _check(out.shape == ref.shape == (n, 45, 45), "patch shape")
     err = float((out - ref).abs().max())
     _check(torch.equal(out, ref), f"kernel != plain (max abs err {err})")
-    plain_ms = _cuda_ms(lambda: orb.extract_patches_canvas_plain(
+
+    # the least time the card could take: every input read once, the output
+    # written once, at the H100's 3.35 TB/s; the kernel does no arithmetic
+    n_bytes = 4 * (out.numel() + canvas.numel() + bi.numel() + ys.numel()
+                   + xs.numel())
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+
+    lib = orb._patch_gather_lib()
+    buf = torch.empty_like(out)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    this = _c_launch(lib.msslam_patch_gather_f32, canvas, bi, ys, xs, buf)
+    this()
+    torch.cuda.synchronize()
+    _check(torch.equal(buf, ref), "kernel != plain through its C entry")
+    if parent_dir is not None:
+        buf_p = torch.empty_like(out)
+        parent = _c_launch(_build_parent(parent_dir), canvas, bi, ys, xs,
+                           buf_p)
+        parent()
+        torch.cuda.synchronize()
+        _check(torch.equal(buf_p, ref), "the parent's kernel != plain")
+        for who, fn in (("parent", parent), ("this", this), ("this", this),
+                        ("parent", parent)):
+            w, c = _run_ms(fn), _cold_ms(fn, flush)
+            print(f"# in turns, {who:<6}: warm {w:.4f} ms "
+                  f"({100 * bound_ms / w:.1f}% of the bound), cold "
+                  f"{c:.4f} ms ({100 * bound_ms / c:.1f}%)")
+    ms = _run_ms(this)
+    ms_cold = _cold_ms(this, flush)
+    wrapper_ms = _cuda_ms(lambda: orb.extract_patches_canvas(
         canvas, bi, ys, xs))
-    ms = _cuda_ms(lambda: orb.extract_patches_canvas(canvas, bi, ys, xs))
-    print(f"# patch_gather 2x{Hc}x{Wc}, {n} kp/img: bit-exact vs plain; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, "
-          f"median of 50)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    plain_ms = _run_ms(lambda: orb.extract_patches_canvas_plain(
+        canvas, bi, ys, xs), n=50, warmup=5)
+    # the nearest single PyTorch call: the plain version's last step alone,
+    # on an (n, 2025) int64 index built beforehand (66 MB the kernel never
+    # reads); the port does not call it
+    R = orb.EXTRACT_R
+    base = ((bi.long().clamp(0, B - 1) * Hc + ys.long().clamp(R, Hc - R - 1)
+             - R) * Wc + xs.long().clamp(R, Wc - R - 1) - R)
+    ar = torch.arange(2 * R + 1, device=canvas.device)
+    idx = base[:, None] + (ar[:, None] * Wc + ar[None, :]).reshape(1, -1)
+    flat = canvas.reshape(-1)
+    _check(torch.equal(flat[idx].view(n, 45, 45), ref), "library call")
+    library_ms = _run_ms(lambda: flat[idx], n=50, warmup=5)
+    print(f"# patch_gather {B}x{Hc}x{Wc}, {n // B} kp/img: bit-exact vs "
+          f"plain. Bound {bound_ms:.4f} ms ({n_bytes} bytes at 3.35 TB/s). "
+          f"Kernel alone, 200 launches between two events (L2 warm), median "
+          f"of 5 runs: {ms:.4f} ms = {100 * bound_ms / ms:.1f}% of the "
+          f"bound; L2 cold, median of 50 event pairs: {ms_cold:.4f} ms = "
+          f"{100 * bound_ms / ms_cold:.1f}%")
+    # what the card does on traffic of the same size, by PyTorch's own
+    # kernels (yardsticks only), and the kernel's floor: one group, one block
+    fill_ms = _run_ms(lambda: buf.fill_(1.0))
+    copy_ms = _run_ms(lambda: buf.copy_(out))
+    one = _c_launch(lib.msslam_patch_gather_f32, canvas, bi[:4].clone(),
+                    ys[:4].clone(), xs[:4].clone(), buf)
+    one_ms = _run_ms(one)
+    print(f"#   same method: Tensor.fill_ of the {out.numel() * 4} B output "
+          f"{fill_ms:.4f} ms; Tensor.copy_ into it from a tensor of its size "
+          f"(as many bytes through the SMs as the gather) {copy_ms:.4f} ms; "
+          f"the kernel on one group of 4 keypoints {one_ms:.4f} ms")
+    print(f"#   one event pair around one call of the checking wrapper "
+          f"(host gap inside the span), median of 50: {wrapper_ms:.4f} ms; "
+          f"plain version {plain_ms:.4f} ms; nearest library call "
+          f"(canvas.reshape(-1)[idx], index prebuilt) {library_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
+            "ms_wrapper_call": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+            "share_of_bound_cold": bound_ms / ms_cold}
 
 
 def _timed(module, name, key, acc):
@@ -338,17 +498,30 @@ def phase_ties_and_selector(window):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="stop after phase 3 (no status line is printed)")
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="another checkout of this repository: phase 3 also "
+                    "builds its patch_gather.cu and times the two kernels "
+                    "in turns (parent, this, this, parent)")
+    args = ap.parse_args()
     phase_device()
     phase_build()
-    kern = phase_kernel()
-    run = phase_main_path()
-    phase_relocalize(run)
-    phase_ties_and_selector(run["window"])
+    kern = phase_kernel(args.parent)
+    launches = None
+    if not args.kernel_only:
+        run = phase_main_path()
+        phase_relocalize(run)
+        phase_ties_and_selector(run["window"])
+        launches = run["launches"]
     print(json.dumps({"kernels": [{
         "name": "patch_gather", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",
         "replaces": "ms_slam_tpu/ops/orb.py:665",
-        "launches": run["launches"], **kern}]}))
+        "launches": launches, **kern}]}))
+    if args.kernel_only:
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface; it is compiled with
 `nvcc` for Hopper (`sm_90a`) into `ms_slam_tpu_torch/_build/lib<name>.so`
-at first use and loaded with ctypes. Nothing here runs at import: the CPU
-tests import every module on a machine without `nvcc`.
+at first use and loaded with ctypes. `-Xptxas -v` is on, and what the
+compiler said (registers, shared memory, spills per kernel) is kept in
+`build_log`. Nothing here runs at import: the CPU tests import every module
+on a machine without `nvcc`.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}      # name -> nvcc's output of this process's build
 
 
 def _nvcc() -> str:
@@ -44,7 +47,11 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], check=True)
+        done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        build_log[name] = done.stdout + done.stderr
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{build_log[name]}")
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):

@@ -312,6 +312,9 @@ def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
     B, H, Wc = canvas.shape
     if H < E or Wc < E:
         raise ValueError(f"canvas {H}x{Wc} is smaller than one {E}x{E} patch")
+    if canvas.numel() >= 2 ** 31:
+        raise ValueError("the kernel's offsets are 32-bit: canvas has "
+                         f"{canvas.numel()} elements, 2^31 or more")
     n = bi.shape[0]
     for name, t in (("bi", bi), ("ys", ys), ("xs", xs)):
         if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous() \

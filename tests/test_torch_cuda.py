@@ -26,6 +26,49 @@ def _inputs(rng, B=2, H=384, Wc=5888, n=512):
     return canvas, bi, ys, xs
 
 
+def _case(name):
+    """Inputs that the kernel's groups of four, its scalar tail and its
+    clips each have to get right; nothing is tied to the 5888-wide canvas."""
+    rng = np.random.default_rng(1)
+    if name == "tail_of_three":             # 1023 = 255 groups + 3
+        canvas, bi, ys, xs = _inputs(rng, n=512)
+        return canvas, bi[:1023], ys[:1023], xs[:1023]
+    if name == "one_keypoint":              # no whole group at all
+        canvas, bi, ys, xs = _inputs(rng, n=4)
+        return canvas, bi[5:6], ys[5:6], xs[5:6]
+    if name == "one_image":
+        return _inputs(rng, B=1, n=301)
+    if name == "all_centres_outside":
+        canvas, bi, ys, xs = _inputs(rng, n=256)
+        H, Wc = canvas.shape[1:]
+        ys = np.where(rng.random(ys.shape) < 0.5, -30, H + 30).astype(np.int32)
+        xs = np.where(rng.random(xs.shape) < 0.5, -30, Wc + 30).astype(np.int32)
+        bi = (bi.astype(np.int64) * 5 - 2).astype(np.int32)   # -2 and 3: clamped
+        return canvas, bi, ys, xs
+    if name == "vga_canvas":                # 640x480 images, default pyramid
+        _, Wc, _ = orb.canvas_layout(480, 640, orb.OrbConfig())
+        assert Wc != 5888
+        return _inputs(rng, H=480, Wc=Wc, n=130)
+    raise KeyError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tail_of_three", "one_keypoint",
+                                  "one_image", "all_centres_outside",
+                                  "vga_canvas"])
+def test_patch_gather_kernel_cases_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in _case(name)]
+    before = orb.patch_gather_launches
+    out = orb.extract_patches_canvas(*args)
+    torch.cuda.synchronize()
+    assert orb.patch_gather_launches == before + 1
+    assert out.shape == (args[1].shape[0], 45, 45)
+    assert torch.equal(out, orb.extract_patches_canvas_plain(*args))
+
+
 @pytest.mark.cuda
 def test_patch_gather_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
