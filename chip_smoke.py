@@ -34,12 +34,22 @@ Phases (any failure exits non-zero; there is no CPU path):
      (bow_vector's word votes depend on it); and the selector on one of
      phase 4's windows, on the card against the CPU (printed, not held:
      the card's float scatter-adds sum in another order);
+  7. loop closing at full width: System.track_stereo with sparsify=True and
+     loop_closing=True (default loop_covis_min=100) over a closed circuit
+     in a BoxWorld that drives into a second lap, as
+     benchmarks/ref_scale_gate.py does, shortened (see phase_loop_closing).
+     Held to state OK, queries > 0, verified >= 1, refines >= 2,
+     loops >= 1, ATE after shutdown() under 2% of the path, the current
+     keyframe's centre error smaller after the correction than before it,
+     the mean error of the last 12 frames under 2% of the path, and one
+     kernel launch per frame;
   then a JSON line of per-kernel results and the final JSON status line.
 
-Options, for work on the kernel: --kernel-only stops after phase 3 and
-prints no status line; --parent DIR also builds the patch_gather.cu of
-another checkout of this repository (same C interface) and times the two
-kernels in turns in phase 3: parent, this, this, parent.
+Options, for work on one part: --kernel-only stops after phase 3 and
+--loop-only runs phases 1-3 and 7; neither prints a status line.
+--parent DIR also builds the patch_gather.cu of another checkout of this
+repository (same C interface) and times the two kernels in turns in
+phase 3: parent, this, this, parent.
 """
 from __future__ import annotations
 
@@ -302,6 +312,33 @@ def _render(world, K, T):
                  for im in world.render_stereo(K, T, BASELINE, H, W))
 
 
+def _make_world(name, kwargs):
+    from ms_slam_tpu_torch.utils import synth
+    return getattr(synth, name)(np.random.default_rng(0), **kwargs)
+
+
+def _render_chunk(name, kwargs, K, poses):
+    world = _make_world(name, kwargs)
+    return [_render(world, K, T) for T in poses]
+
+
+def _render_all(name, kwargs, K, poses, n_workers=6):
+    """Render every pose's stereo pair in worker processes (numpy ray
+    casting, ~1 s a frame on one core); each worker builds the same world
+    from the seed. The pool is gone when this returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    chunks = [poses[i::n_workers] for i in range(n_workers)]
+    with ProcessPoolExecutor(
+            n_workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        parts = list(ex.map(_render_chunk, [name] * n_workers,
+                            [kwargs] * n_workers, [K] * n_workers, chunks))
+    frames = [None] * len(poses)
+    for w, part in enumerate(parts):
+        frames[w::n_workers] = part
+    return frames
+
+
 def phase_main_path():
     from ms_slam_tpu_torch.models.map_state import MapConfig
     from ms_slam_tpu_torch.ops import orb
@@ -323,11 +360,11 @@ def phase_main_path():
         sparsify=True, sparsify_n=100, sparsify_lambda=500.0,
         sparsify_grid_lambda=10.0, sparsify_window=30,
         sparsify_queue_min=2, nonlocal_kf=3)
-    rng = np.random.default_rng(0)
-    world = synth.CorridorWorld(rng, half_w=6.0, y_floor=1.7)
+    world_args = ("CorridorWorld", dict(half_w=6.0, y_floor=1.7))
+    world = _make_world(*world_args)
     poses = synth.make_trajectory(N_FRAMES, "forward")
     t0 = time.perf_counter()
-    frames = [_render(world, K, T) for T in poses]
+    frames = _render_all(*world_args, K, poses)
     print(f"# rendered {N_FRAMES} stereo frames in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -456,6 +493,7 @@ def phase_relocalize(run):
                       for s, n in found)
           + f"; kernel launches {launches}")
     _check(launches >= 2, "patch_gather not launched by relocalization")
+    return launches
 
 
 def phase_ties_and_selector(window):
@@ -497,10 +535,233 @@ def phase_ties_and_selector(window):
           f"{cpu_s * 1e3:.1f} ms (host clock, one call)")
 
 
+def _circuit(n_frames: int, radius: float, lap: int, ramp: int):
+    """A closed loop driven facing forward (z along the tangent), carried on
+    into a second lap: the revisit is a moving overlap, so place recognition
+    gets a stream of revisit keyframes to confirm against. The drive starts
+    from rest: the turn rate grows linearly to 2*pi/lap a frame over the
+    first `ramp` frames (the first frames have no velocity model yet, and a
+    full-rate first step would move features 37 px at these widths), so the
+    first lap ends at frame lap + ramp/2."""
+    from scipy.spatial.transform import Rotation
+    w = 2 * np.pi / lap
+    poses = []
+    for i in range(n_frames):
+        a = w * i * i / (2 * ramp) if i < ramp else w * (i - ramp / 2)
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_euler("y", a).as_matrix()
+        T[:3, 3] = [radius * np.sin(a), 0.0, radius * (1 - np.cos(a))]
+        poses.append(T)
+    return poses
+
+
+LOOP_LAP = 120          # frames in one lap at full rate
+LOOP_RAMP = 20          # frames of the start from rest: lap 1 ends at 130
+LOOP_FRAMES = 170       # lap 1 plus 40 frames of the second
+LOOP_RADIUS = 9.0       # metres
+LOOP_KF_EVERY = 5       # max_frames_between_kf
+LOOP_TEX_SCALE = 0.07   # metres a texel: the 768-texel textures span 53.8 m
+
+
+def phase_loop_closing():
+    """Loop closing at full width: 1248x384 frames, 2048 features, 8 levels,
+    the map capacities and sparsifier parameters of phase 4, loop closing on
+    at its default thresholds.
+
+    The scene is benchmarks/ref_scale_gate.py's: BoxWorld(half=24) and a
+    circle of radius 9 m driven facing forward. Cuts against that gate: a
+    lap of LOOP_LAP = 120 frames instead of 1000 (3 degrees and 0.47 m a
+    frame instead of 0.36 degrees and 0.057 m), reached from rest over
+    LOOP_RAMP = 20 frames (the gate starts at its full, eight times slower
+    rate), and LOOP_FRAMES = 170 frames instead of 1500, so that the second
+    lap begins inside the script's budget; max_frames_between_kf =
+    LOOP_KF_EVERY = 5 instead of 10, so that
+    keyframes stay about as far apart in angle as a turning car's; the
+    sparsifier's warm-up thresholds nonlocal_kf=3 and sparsify_queue_min=2
+    (bench.py:128) instead of 30 and 11, so that sparsified keyframes, the
+    only retrieval candidates, exist by the time the lap closes; the map
+    capacities of phase 4 (128 keyframes, 32768 points) instead of 256 and
+    65536; and textures of LOOP_TEX_SCALE = 0.07 m a texel instead of 0.02,
+    so that their period (53.8 m) exceeds the 48 m room. At 0.02 the floor
+    and ceiling repeat every 15.36 m, and with keyframes this far apart the
+    verification cascade accepted a place two periods away (28 inliers,
+    then 335/98/351 and 263/55/257 on the 31/52/102 ladder), which is
+    perceptual aliasing of the scene, not a revisit."""
+    from ms_slam_tpu_torch.models.map_state import MapConfig
+    from ms_slam_tpu_torch.ops import orb, pose_graph, sim3
+    from ms_slam_tpu_torch.ops.orb import OrbConfig
+    from ms_slam_tpu_torch.pipeline import loop_closing, mapping_ops
+    from ms_slam_tpu_torch.pipeline.frontend import Calib
+    from ms_slam_tpu_torch.pipeline.system import System, SystemConfig
+    from ms_slam_tpu_torch.utils import evaluate
+
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    calib = Calib(model=0, params=(FX, FX, W / 2, H / 2), bf=FX * BASELINE,
+                  width=W, height=H, th_depth=BASELINE * 40, fps=10.0)
+    cfg = SystemConfig(
+        calib=calib, orb=OrbConfig(n_features=2048, n_levels=8),
+        map=MapConfig(max_kf=128, max_mp=32768, n_feat=2048,
+                      local_mp_cap=4096, window_kf=6),
+        min_init_depth_points=300, max_frames_between_kf=LOOP_KF_EVERY,
+        ba_iters=6, sparsify=True, sparsify_n=100, sparsify_lambda=500.0,
+        sparsify_grid_lambda=10.0, sparsify_window=30,
+        sparsify_queue_min=2, nonlocal_kf=3, loop_closing=True)
+    poses = _circuit(LOOP_FRAMES, LOOP_RADIUS, LOOP_LAP, LOOP_RAMP)
+    t0 = time.perf_counter()
+    frames = _render_all("BoxWorld", dict(half=24.0, tex_scale=LOOP_TEX_SCALE),
+                         K, poses)
+    print(f"# loop closing: rendered {LOOP_FRAMES} stereo frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    slam = System(cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"# loop closing: System built in {time.perf_counter() - t0:.2f} s "
+          "(the LoopCloser pays torch.func's first use there)")
+
+    stage = {}
+    _timed(loop_closing, "detect_and_verify", "detect_and_verify", stage)
+    _timed(loop_closing, "refine_hypothesis", "refine_hypothesis", stage)
+    # the parts of one _verify_pair / refine_hypothesis
+    _timed(sim3, "sim3_from_hypotheses", "  sim3_from_hypotheses", stage)
+    _timed(sim3, "sim3_guided_match", "  sim3_guided_match", stage)
+    _timed(sim3, "sim3_refine", "  sim3_refine", stage)
+    _timed(sim3, "sim3_refine_world", "  sim3_refine_world", stage)
+    _timed(mapping_ops, "fuse_into", "fuse_into", stage)
+    _timed(pose_graph, "optimize_pose_graph", "pose_graph", stage)
+    _timed(mapping_ops, "global_ba", "global_ba", stage)
+
+    lc = slam._loop_closer
+    gt_centre = {i: T[:3, 3] for i, T in enumerate(poses)}
+    corrections = []
+    correct_loop = lc._correct_loop
+
+    def kf_centre_err(slot):
+        # the first camera's frame is both the map's and the circuit's
+        T = slam._kf_pose(slot)
+        fid = int(slam.ms.kf_frame_id[slot])
+        return float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3]
+                                    - gt_centre[fid])), fid
+
+    def timed_correct_loop(cur, match, *S_cm):
+        before, fid = kf_centre_err(cur)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        correct_loop(cur, match, *S_cm)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        corrections.append({
+            "frame": fid, "match_frame": int(slam.ms.kf_frame_id[match]),
+            "before_m": before, "after_m": kf_centre_err(cur)[0], "s": dt})
+    lc._correct_loop = timed_correct_loop
+    trace = []
+    insert_keyframe = lc.insert_keyframe
+
+    def traced_insert(slot):
+        insert_keyframe(slot)
+        h = lc._hyp
+        trace.append(f"{int(slam.ms.kf_frame_id[slot])}:"
+                     f"{slam.keyframes_in_map()}:"
+                     f"{int(slam.kf_db.present.sum())}:"
+                     f"{'-' if h is None else h['n_coin']}")
+    lc.insert_keyframe = traced_insert
+    fetched = []
+    flush = lc.flush
+
+    def logged_flush():
+        if lc._pending is not None:
+            kind, slot, packed = lc._pending
+            p = packed.get()
+            fid = int(slam.ms.kf_frame_id[slot])
+            if kind == "refine":
+                fetched.append(f"{fid}: refine against frame "
+                               f"{int(slam.ms.kf_frame_id[lc._hyp['match']])}"
+                               f" gave {p[:3].astype(int).tolist()} (ladder "
+                               f"{[lc.th_proj, lc.th_opt + 1, lc.th_rep]})")
+            elif p[:, 2].max() >= 10:
+                fetched.append(f"{fid}: query gave " + ", ".join(
+                    f"frame {int(slam.ms.kf_frame_id[int(r[0])])} score "
+                    f"{r[1]:.3f} inliers {int(r[2])}" for r in p))
+        flush()
+    lc.flush = logged_flush
+
+    torch.cuda.reset_peak_memory_stats()
+    orb.patch_gather_launches = 0
+    frame_s = []
+    for i in range(LOOP_FRAMES):
+        t0 = time.perf_counter()
+        slam.track_stereo(frames[i][0], frames[i][1], 0.1 * i)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    slam.shutdown()
+    torch.cuda.synchronize()
+    launches = orb.patch_gather_launches
+
+    steady = np.asarray(frame_s[10:])
+    print(f"# loop closing: {LOOP_FRAMES} frames (lap {LOOP_LAP} after a "
+          f"ramp of {LOOP_RAMP}, radius {LOOP_RADIUS} m); frames/s over "
+          f"frames 10-{LOOP_FRAMES - 1}: "
+          f"{len(steady) / steady.sum():.3f}; frame wall p50 "
+          f"{np.percentile(frame_s, 50) * 1e3:.2f} ms, p95 "
+          f"{np.percentile(frame_s, 95) * 1e3:.2f} ms, max "
+          f"{max(frame_s) * 1e3:.2f} ms; keyframes "
+          f"{slam.keyframes_in_map()}, map points "
+          f"{slam.map_points_in_map()}, sparsification windows "
+          f"{slam._sparsifier.stats['windows']}, KFDB candidates "
+          f"{int(slam.kf_db.present.sum())}; kernel launches {launches}; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    print(f"# loop closer: {lc.stats}; loop edges {lc.loop_edges}")
+    print("# per keyframe, frame:keyframes in the map:KFDB candidates:"
+          "coincidences of the held hypothesis: " + " ".join(trace))
+    for k in ("detect_and_verify", "  sim3_from_hypotheses",
+              "  sim3_guided_match", "  sim3_refine", "refine_hypothesis",
+              "  sim3_refine_world", "fuse_into", "pose_graph", "global_ba"):
+        v = np.asarray(stage.get(k, [0.0]))
+        print(f"# call {k:<22} n={len(stage.get(k, []))} p50 "
+              f"{np.percentile(v, 50) * 1e3:.2f} ms max {v.max() * 1e3:.2f} "
+              f"ms (host clock between device syncs)")
+    for line in fetched:
+        print(f"# fetched at keyframe of frame {line}")
+    for c in corrections:
+        print(f"# correction at frame {c['frame']} onto frame "
+              f"{c['match_frame']}: _correct_loop {c['s'] * 1e3:.1f} ms; "
+              f"current keyframe's centre error {c['before_m']:.4f} m "
+              f"before, {c['after_m']:.4f} m after")
+
+    _check(slam.state == "OK", f"final state {slam.state}")
+    _check(lc.stats["queries"] > 0, "no database query was dispatched")
+    _check(lc.stats["verified"] >= 1, "no candidate verified")
+    _check(lc.stats["refines"] >= 2, f"refines {lc.stats['refines']}")
+    _check(lc.stats["loops"] >= 1 and corrections, "no loop was closed")
+    first = corrections[0]
+    _check(first["after_m"] < first["before_m"],
+           "the correction did not bring the current keyframe closer")
+    rows = [(ts, Twc) for ts, Twc in slam.poses_wc()]
+    est = np.stack([Twc[:3, 3] for _, Twc in rows])
+    gt = np.stack([gt_centre[int(round(ts * 10))] for ts, _ in rows])
+    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+    ate = evaluate.ate_rmse(est, gt)
+    tail = float(np.mean(np.linalg.norm(est - gt, axis=1)[-12:]))
+    print(f"# loop closing: ATE {ate:.4f} m on a {path:.2f} m path "
+          f"({100 * ate / path:.3f}%, bar 2%); mean error of the last 12 "
+          f"frames, not aligned, {tail:.4f} m ({100 * tail / path:.3f}%, "
+          f"bar 2%)")
+    _check(len(rows) == LOOP_FRAMES, f"{len(rows)} of {LOOP_FRAMES} frames "
+           "have a pose")
+    _check(np.isfinite(est).all() and ate < 0.02 * path, "ATE above 2%")
+    _check(tail < 0.02 * path, "second-lap error above 2% of the path")
+    _check(launches == LOOP_FRAMES,
+           f"patch_gather launched {launches} times for {LOOP_FRAMES} frames")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after phase 3 (no status line is printed)")
+    ap.add_argument("--loop-only", action="store_true",
+                    help="phases 1-3 and 7 only (no status line is printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
                     "builds its patch_gather.cu and times the two kernels "
@@ -509,18 +770,21 @@ def main():
     phase_device()
     phase_build()
     kern = phase_kernel(args.parent)
-    launches = None
-    if not args.kernel_only:
+    by_phase = {}
+    if not (args.kernel_only or args.loop_only):
         run = phase_main_path()
-        phase_relocalize(run)
+        by_phase["main_path"] = run["launches"]
+        by_phase["relocalization"] = phase_relocalize(run)
         phase_ties_and_selector(run["window"])
-        launches = run["launches"]
+    if not args.kernel_only:
+        by_phase["loop_closing"] = phase_loop_closing()
     print(json.dumps({"kernels": [{
         "name": "patch_gather", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",
         "replaces": "ms_slam_tpu/ops/orb.py:665",
-        "launches": launches, **kern}]}))
-    if args.kernel_only:
+        "launches": sum(by_phase.values()) if by_phase else None,
+        "launches_by_phase": by_phase, **kern}]}))
+    if args.kernel_only or args.loop_only:
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -178,6 +178,23 @@ def covisibility_counts(ms: MapState, q) -> torch.Tensor:
     return counts
 
 
+def covisibility_matrix(ms: MapState) -> torch.Tensor:
+    """(K,K) int32 shared-observation counts between all keyframe pairs:
+    entry [i, k] is the number of keyframe k's observations whose point
+    keyframe i observes too (so a point that k observes twice counts twice,
+    as in `covisibility_counts`); the diagonal is 0. One (K,M)@(M,K) product
+    of small integers in float32, exact with TF32 off."""
+    K, N = ms.obs_mp.shape
+    M = ms.mp_pos.shape[0]
+    obs = torch.where(ms.kf_valid[:, None], ms.obs_mp, -1)
+    kf_of = _arange(K, obs)[:, None].expand(K, N)
+    cnt = add_at_(torch.zeros((K, M + 1), dtype=F32, device=obs.device),
+                  (kf_of, torch.where(obs >= 0, obs, M)), 1.0)[:, :M]
+    c = ((cnt > 0).to(F32) @ cnt.T).to(I32)
+    c.fill_diagonal_(0)
+    return c
+
+
 def best_covisible(ms: MapState, q, k: int, min_weight: int = 15):
     """Top-k covisible keyframes of q: (k,) idx, (k,) weight, (k,) valid."""
     w, idx = top_k(covisibility_counts(ms, q), k)

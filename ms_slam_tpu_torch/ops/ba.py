@@ -1,6 +1,9 @@
-"""Batched Schur-complement bundle adjustment (camera-blocked factor table).
+"""Batched bundle adjustment: the Schur-complement window BA
+(camera-blocked factor table) and the alternating whole-map BA.
 
-Port of `ms_slam_tpu/ops/ba.py::ba_solve` with `cam_blocked=True`, the path
+`ba_alternate` is the resection-intersection BA run over the whole map after
+a loop closure or a merge. `ba_solve` is the port of
+`ms_slam_tpu/ops/ba.py::ba_solve` with `cam_blocked=True`, the path
 the window BA takes: Levenberg-damped Gauss-Newton over SE(3) camera
 blocks and 3D point blocks with Huber weights, a two-stage schedule (half
 the iterations, drop chi2 outliers, the rest), fixed cameras/points by
@@ -64,6 +67,71 @@ def _diag_damp(H, lam, eps):
     eye = torch.eye(n, dtype=H.dtype, device=H.device)
     return H + lam * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) \
         + eps * eye
+
+
+def ba_alternate(model: int, params, bf, kf_R, kf_t, cam_opt, mp_pos, pt_opt,
+                 f_cam, f_pt, f_uv, f_ur, f_sigma2, f_valid,
+                 n_sweeps: int = 3, n_iters: int = 2, lam: float = 1e-3):
+    """Resection-intersection bundle adjustment: alternate point-only and
+    camera-only Gauss-Newton passes. Each pass needs only block-diagonal
+    Hessians (per-point 3x3, per-camera 6x6 scatter-adds), so it scales to
+    the whole map: the global BA after a loop closure (ref
+    Optimizer::GlobalBundleAdjustemnt). Returns (kf_R, kf_t, mp_pos).
+
+    The per-point and per-camera sums are float `index_add_`s with many
+    factors per target; on CUDA their order differs from run to run."""
+    C = kf_R.shape[0]
+    P = mp_pos.shape[0]
+    dev = kf_R.device
+    dt = kf_R.dtype
+    params = params.to(dt)
+    bf = torch.as_tensor(bf, dtype=dt, device=dev)
+    f_cam = f_cam.long()
+    f_pt = f_pt.long()
+    is_stereo = f_ur >= 0.0
+    w_info = torch.where(f_valid, 1.0 / torch.clamp(f_sigma2, min=1e-12),
+                         torch.zeros_like(f_sigma2))
+    hub_d2 = torch.where(is_stereo, robust.CHI2_3DOF,
+                         robust.CHI2_2DOF).to(dt)
+    pt_free = pt_opt[f_pt][:, None, None]
+    cam_free = cam_opt[f_cam][:, None, None]
+
+    def weights(res, z):
+        chi2 = torch.sum(res * res, dim=-1) * w_info
+        return robust.huber_weight(chi2, hub_d2) * w_info * (z > 1e-2)
+
+    def block_sums(J, w, res, idx, n):
+        """sum_f J^T W J and -J^T W r grouped by idx: (n,d,d), (n,d)."""
+        d = J.shape[-1]
+        JW = J * w[:, None, None]
+        Hs = torch.zeros((n, d, d), dtype=dt, device=dev).index_add_(
+            0, idx, JW.transpose(1, 2) @ J)
+        bs = torch.zeros((n, d), dtype=dt, device=dev).index_add_(
+            0, idx, -(JW.transpose(1, 2) @ res[..., None])[..., 0])
+        return _diag_damp(Hs, lam, 1e-8), bs
+
+    R_all, t_all, P_all = kf_R, kf_t, mp_pos
+    for _ in range(n_sweeps):
+        for _ in range(n_iters):                       # point pass
+            res, _, Jp, z = _factor_res_jac(model, params, bf, R_all, t_all,
+                                            P_all, f_cam, f_pt, f_uv, f_ur,
+                                            is_stereo)
+            Jp = torch.where(pt_free, Jp, torch.zeros_like(Jp))
+            Hpp, bp = block_sums(Jp, weights(res, z), res, f_pt, P)
+            P_all = P_all + lie.solve3x3(Hpp, bp) * pt_opt[:, None]
+        for _ in range(n_iters):                       # camera pass
+            res, Jc, _, z = _factor_res_jac(model, params, bf, R_all, t_all,
+                                            P_all, f_cam, f_pt, f_uv, f_ur,
+                                            is_stereo)
+            Jc = torch.where(cam_free, Jc, torch.zeros_like(Jc))
+            Hcc, bc = block_sums(Jc, weights(res, z), res, f_cam, C)
+            # sync: the batched 6x6 solve goes through the library solver
+            dxc = torch.linalg.solve(Hcc, bc[..., None])[..., 0] \
+                * cam_opt[:, None]
+            dR, dtc = lie.se3_exp(dxc)
+            R_all, t_all = lie.se3_compose(dR, dtc, R_all, t_all)
+            R_all = lie.normalize_rotation(R_all)
+    return R_all, t_all, P_all
 
 
 def ba_solve(model: int, params, bf, kf_R, kf_t, cam_opt, mp_pos, pt_opt,

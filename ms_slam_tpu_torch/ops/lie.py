@@ -1,9 +1,13 @@
-"""Batched SO(3)/SE(3) operations on stacked tensors.
+"""Batched SO(3)/SE(3)/Sim(3) operations on stacked tensors.
 
-Port of `ms_slam_tpu/ops/lie.py` (the SE(3) subset the stereo visual path
-uses). Rotations are (...,3,3) matrices; tangents are 6-vectors ordered
-[upsilon(3), omega(3)] (translation first, Sophus' SE3::log convention).
+Port of `ms_slam_tpu/ops/lie.py`. Rotations are (...,3,3) matrices; SE(3)
+tangents are 6-vectors ordered [upsilon(3), omega(3)] (translation first,
+Sophus' SE3::log convention), Sim(3) tangents 7-vectors [v, w, sigma].
 Taylor fallbacks below `_SMALL2` keep float32 finite at the identity.
+
+No function branches in Python on tensor values or writes in place, so
+`torch.func.jacrev/jacfwd/vmap` trace through all of them (the pose graphs
+and the Sim(3) refinements differentiate `se3_log`/`sim3_log`).
 """
 from __future__ import annotations
 
@@ -206,6 +210,12 @@ def se3_exp(xi: torch.Tensor):
     return so3_exp(w), _mv(so3_left_jacobian(w), v)
 
 
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> (...,6) [v, w]."""
+    w = so3_log(R)
+    return torch.cat([solve3x3(so3_left_jacobian(w), t), w], dim=-1)
+
+
 def se3_compose(Ra, ta, Rb, tb):
     """T_a * T_b."""
     return Ra @ Rb, _mv(Ra, tb) + ta
@@ -219,3 +229,73 @@ def se3_inv(R, t):
 def se3_apply(R, t, X):
     """Transform points X (...,3)."""
     return _mv(R, X) + t
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (s: (...,), R: (...,3,3), t: (...,3)); tangent [v, w, sigma]. Loop
+# closing and the 7-DoF essential graph use it.
+# ---------------------------------------------------------------------------
+
+def sim3_apply(s, R, t, X):
+    return s[..., None] * _mv(R, X) + t
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    return sa * sb, Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta
+
+
+def sim3_inv(s, R, t):
+    si = 1.0 / s
+    Rt = R.transpose(-1, -2)
+    return si, Rt, -si[..., None] * _mv(Rt, t)
+
+
+def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The W of the Sim(3) exponential (t = W v): W = C I + A hat(w) +
+    B hat(w)^2, closed form with Taylor fallbacks in the four
+    (sigma small?, theta small?) regimes."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small_t, theta = _safe_theta(theta2)
+    Om = hat(w)
+    Om2 = Om @ Om
+    es = torch.exp(sigma)
+    one = torch.ones_like(theta)
+
+    small_s = torch.abs(sigma) < 1e-5
+    ss = torch.where(small_s, one, sigma)        # safe sigma
+    th = torch.where(small_t, one, theta)        # safe theta
+
+    # sigma ~ 0
+    A_s0 = torch.where(small_t, 0.5 - theta * theta / 24.0,
+                       (1.0 - torch.cos(th)) / (th * th))
+    B_s0 = torch.where(small_t, 1.0 / 6.0 - theta * theta / 120.0,
+                       (th - torch.sin(th)) / (th * th * th))
+    # sigma != 0
+    C_s = (es - 1.0) / ss
+    A_s_t0 = ((ss - 1.0) * es + 1.0) / (ss * ss)
+    B_s_t0 = (es * (0.5 * ss * ss - ss + 1.0) - 1.0) / (ss * ss * ss)
+    a = es * torch.sin(th)
+    b = es * torch.cos(th)
+    c = th * th + ss * ss
+    A_s_t = (a * ss + (1.0 - b) * th) / (th * c)
+    B_s_t = (C_s - ((b - 1.0) * ss + a * th) / c) / (th * th)
+
+    A = torch.where(small_s, A_s0, torch.where(small_t, A_s_t0, A_s_t))
+    B = torch.where(small_s, B_s0, torch.where(small_t, B_s_t0, B_s_t))
+    C = torch.where(small_s, one, C_s)
+    return (C[..., None, None] * _eye(3, w).expand(Om.shape)
+            + A[..., None, None] * Om + B[..., None, None] * Om2)
+
+
+def sim3_exp(xi: torch.Tensor):
+    """(...,7) [v, w, sigma] -> (s, R, t)."""
+    v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return torch.exp(sigma), so3_exp(w), _mv(_sim3_W(w, sigma), v)
+
+
+def sim3_log(s, R, t) -> torch.Tensor:
+    """(s, R, t) -> (...,7) [v, w, sigma]."""
+    sigma = torch.log(s)
+    w = so3_log(R)
+    return torch.cat([solve3x3(_sim3_W(w, sigma), t), w, sigma[..., None]],
+                     dim=-1)

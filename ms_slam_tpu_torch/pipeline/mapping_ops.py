@@ -269,6 +269,46 @@ def _local_ba_impl(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
                       n_outliers=outlier.sum().to(I32))
 
 
+def fuse_into(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig, kf_t,
+              cand_idx, cand_valid) -> M.MapState:
+    """Fuse candidate points into keyframe kf_t (loop closing's entry point
+    to `_fuse_impl`; `ms` is updated in place)."""
+    return _fuse_impl(ms, calib, orb_cfg, int(kf_t), cand_idx, cand_valid)
+
+
+def local_ba(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig, win_idx,
+             win_mask, fix_idx, fix_mask, n_fixed: int, pt_cap: int,
+             n_iters: int = 8) -> LocalBAOut:
+    """Window BA over the given keyframes (the weld BA's entry point to
+    `_local_ba_impl`; `ms` is updated in place)."""
+    return _local_ba_impl(ms, calib, orb_cfg, win_idx, win_mask, fix_idx,
+                          fix_mask, n_fixed, pt_cap, n_iters)
+
+
+def global_ba(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig, fixed_kf,
+              n_sweeps: int = 3) -> M.MapState:
+    """Whole-map refinement after a loop closure or a merge (ref
+    RunGlobalBundleAdjustment): alternating resection-intersection over the
+    full factor table (every observation of every valid keyframe), the
+    anchor keyframe fixed. Returns a MapState with new pose and point
+    tensors; the argument's are left as they were."""
+    dev = ms.kf_R.device
+    params = calib.params_array(dev)
+    K, N = ms.obs_mp.shape
+    obs = ms.obs_mp
+    f_valid = (obs >= 0) & ms.kf_valid[:, None] & ms.kp_valid
+    f_cam = torch.arange(K, device=dev)[:, None].expand(K, N)
+    cam_opt = ms.kf_valid & (torch.arange(K, device=dev) != fixed_kf)
+    R_n, t_n, P_n = ba.ba_alternate(
+        calib.model, params, calib.bf, ms.kf_R, ms.kf_t, cam_opt,
+        ms.mp_pos, ms.mp_valid, f_cam.reshape(-1),
+        obs.clamp(min=0).reshape(-1), ms.kp_xy.reshape(K * N, 2),
+        ms.kp_uright.reshape(-1),
+        _scale2(orb_cfg, dev)[ms.kp_octave.long()].reshape(-1),
+        f_valid.reshape(-1), n_sweeps=n_sweeps)
+    return ms._replace(kf_R=R_n, kf_t=t_n, mp_pos=P_n)
+
+
 # ---------------------------------------------------------------------------
 # Fused per-keyframe mapping step (triangulate + fuse + window BA + cull)
 # ---------------------------------------------------------------------------

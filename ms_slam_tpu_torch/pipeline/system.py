@@ -13,9 +13,13 @@ A tracking failure goes through the reference's loss path: relocalization
 prior-free PnP), else the RECENTLY_LOST grace window, LOST, and after
 enough lost frames a fresh map in the Atlas labels.
 
+With `loop_closing=True` every keyframe also goes to the LoopCloser:
+place recognition against the sparsified keyframes, confirmation over three
+keyframes, then the loop correction or the Atlas map merge.
+
 The reference's tunnel workarounds (device-scalar cache, upload thread,
-batched fetches with `_complete_batch`) are not carried over. Loop
-closing, IMU and fisheye configurations raise at construction.
+batched fetches with `_complete_batch`) are not carried over. IMU and
+fisheye configurations raise at construction.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from ..ops.orb import OrbConfig
 from . import mapping_ops as mo
 from . import tracking_ops as to
 from .frontend import Calib, FrameData, process_stereo_stacked
+from .loop_closing import LoopCloser
 from .sparsification import Sparsifier
 
 OK, NOT_INITIALIZED, RECENTLY_LOST, LOST = "OK", "NOT_INIT", "RECENTLY_LOST", "LOST"
@@ -44,8 +49,8 @@ PIPELINE_DEPTH = 2
 @dataclass
 class SystemConfig:
     """The reference's SystemConfig fields that the stereo visual path
-    reads, with its defaults, plus the switches that select paths not
-    ported yet (`loop_closing`, `use_imu`: they must stay off)."""
+    reads, with its defaults, plus the switch that selects a path not
+    ported yet (`use_imu`: it must stay off)."""
 
     calib: Calib = None
     orb: OrbConfig = None
@@ -66,6 +71,12 @@ class SystemConfig:
     sparsify_queue_min: int = 4
     nonlocal_kf: int = 8
     loop_closing: bool = False
+    # essential-graph extra-edge covisibility threshold (ref minFeat=100 at
+    # 2000 features a frame; scale down for smaller feature budgets)
+    loop_covis_min: int = 100
+    # inertial yaw-only loop gate tolerances (ref LoopClosing.cc:243-256)
+    loop_pitchroll_tol: float = 0.008
+    loop_yaw_tol: float = 0.349
     use_imu: bool = False
     localization_only: bool = False
     # RECENTLY_LOST grace window before LOST, in seconds (ref
@@ -95,10 +106,9 @@ class System:
     def __init__(self, cfg: SystemConfig, device=None):
         """device: where the map and every step run; None means the CUDA
         card, and raises when there is none (the CPU only on request)."""
-        for flag in ("loop_closing", "use_imu"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"SystemConfig.{flag} is not ported yet (ROADMAP queue 1)")
+        if cfg.use_imu:
+            raise NotImplementedError(
+                "SystemConfig.use_imu is not ported yet (ROADMAP queue 1)")
         if cfg.calib.is_fisheye_stereo or cfg.calib.model != 0:
             raise NotImplementedError("fisheye cameras are not ported yet")
         if device is None:
@@ -153,10 +163,14 @@ class System:
         # reads it with loop closing off
         self.kf_db = None
         self._sparsifier = None
-        if cfg.sparsify:
+        self._loop_closer = None
+        if cfg.sparsify or cfg.loop_closing:
             self.kf_db = KeyFrameDatabase(max_kf=cfg.map.max_kf,
                                           device=self.device)
+        if cfg.sparsify:
             self._sparsifier = Sparsifier(self)
+        if cfg.loop_closing:
+            self._loop_closer = LoopCloser(self)
 
     # ------------------------------------------------------------------
     # public API
@@ -338,6 +352,8 @@ class System:
         self._has_vel = False
         self.vel = None
         self._lost_ts = None
+        if self._loop_closer is not None:
+            self._loop_closer.insert_keyframe(kf_slot)
         self._record(timestamp, lost=False)
 
     def _dispatch_track(self, frame: FrameData, timestamp: float):
@@ -505,8 +521,8 @@ class System:
 
     def _redispatch_inflight(self):
         """Re-run newer in-flight frames after an event that invalidated
-        their inputs (relocalization): their tracks rerun from the
-        corrected pose."""
+        their inputs (relocalization, a loop correction): their tracks rerun
+        from the corrected pose."""
         stale = list(self._inflight)
         self._inflight.clear()
         saved_fid = self.frame_id
@@ -567,6 +583,8 @@ class System:
         while self._inflight:
             self._complete_one()
         self._flush_pending_info()
+        if self._loop_closer is not None:
+            self._loop_closer.flush()
 
     def _predicted_pose(self) -> np.ndarray:
         """Host estimate for the newest dispatched frame (its tracked pose
@@ -683,6 +701,8 @@ class System:
         if self._sparsifier is not None:
             self._sparsifier.observe_window(
                 [int(v) for v in info[18:18 + Wk] if v >= 0])
+        if self._loop_closer is not None:
+            self._loop_closer.insert_keyframe(slot)
 
     def _free_keyframes(self, culled: list[int]):
         """Feed culled keyframe slots to the free-list; trajectory entries

@@ -1,12 +1,14 @@
-"""The patch-gather CUDA kernel against its plain version, on the card.
+"""The patch-gather CUDA kernel against its plain version, and what else
+differs on the card (tied argmins, float scatter sums, pinned fetches).
 
-The kernel has no CPU mode, so the test marked `cuda` skips on a machine
+The kernel has no CPU mode, so the tests marked `cuda` skip on a machine
 without a card. It needs neither jax nor this directory's conftest.py, so
 on a GPU machine that has only PyTorch it runs as
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: bit-exact (the kernel is a copy).
+Tolerance: bit-exact for the kernel (it is a copy); stated in the test for
+the pose graph.
 """
 import numpy as np
 import pytest
@@ -111,3 +113,57 @@ def test_argmin_ties_first_index_on_card():
                          torch.ones(2, dtype=torch.bool, device="cuda"))
     assert h[2].item() == pytest.approx(2 / 3)
     assert h[9].item() == pytest.approx(1 / 3)
+
+
+def _ring_graph(K=64, n_pad=40):
+    """A drifted ring of K poses with one loop edge and weight-0 padding
+    edges into block (0, 0), as float32 numpy."""
+    from scipy.spatial.transform import Rotation
+    rng = np.random.default_rng(3)
+    a = 2 * np.pi * np.arange(K) / K
+    R = np.stack([Rotation.from_euler("y", x).as_matrix().T for x in a])
+    c = np.stack([10 * np.sin(a), 0 * a, 10 * (1 - np.cos(a))], -1)
+    t = -np.einsum("kij,kj->ki", R, c)
+    e_i = np.r_[np.arange(1, K), K - 1, np.zeros(n_pad, int)]
+    e_j = np.r_[np.arange(0, K - 1), 0, np.zeros(n_pad, int)]
+    e_R = np.einsum("eij,ekj->eik", R[e_i], R[e_j])
+    e_t = t[e_i] - np.einsum("eij,ej->ei", e_R, t[e_j])
+    e_w = np.r_[np.full(K - 1, 10.0), 20.0, np.zeros(n_pad)]
+    drift = Rotation.from_rotvec(
+        np.cumsum(rng.normal(0, 0.004, (K, 3)), 0)).as_matrix()
+    R0 = np.einsum("kij,kjl->kil", drift, R)
+    t0 = t + np.cumsum(rng.normal(0, 0.02, (K, 3)), 0)
+    f32 = np.float32
+    return (R0.astype(f32), t0.astype(f32), np.arange(K) == 0, e_i, e_j,
+            e_R.astype(f32), e_t.astype(f32), e_w.astype(f32), e_w > 0)
+
+
+@pytest.mark.cuda
+def test_pose_graph_card_against_cpu():
+    """The pose graph's block sums are float index_add_s with many edges per
+    block: on the card they add in no fixed order, so the card's result is
+    held to the CPU's at 1e-4 in rotation and 1e-3 in translation (ring of
+    radius 10), not bit for bit; true float32 products (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.ops import pose_graph
+    args = [torch.from_numpy(a) for a in _ring_graph()]
+    cpu = pose_graph.optimize_pose_graph(*args, n_iters=10)
+    card = pose_graph.optimize_pose_graph(*[a.cuda() for a in args],
+                                          n_iters=10)
+    assert card.R.is_cuda and not torch.backends.cuda.matmul.allow_tf32
+    np.testing.assert_allclose(card.R.cpu().numpy(), cpu.R.numpy(), atol=1e-4)
+    np.testing.assert_allclose(card.t.cpu().numpy(), cpu.t.numpy(), atol=1e-3)
+    assert float(cpu.final_cost) < 1e-2
+
+
+@pytest.mark.cuda
+def test_deferred_fetch_on_card():
+    """A dispatched result lands in pinned host memory behind an event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.pipeline.loop_closing import _Deferred
+    x = torch.arange(48, dtype=torch.float32, device="cuda").reshape(3, 16)
+    d = _Deferred(x * 2)
+    assert d.host.is_pinned() and d.event is not None
+    np.testing.assert_array_equal(d.get(), 2 * np.arange(48).reshape(3, 16))

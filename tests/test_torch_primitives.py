@@ -168,3 +168,74 @@ def test_triangulate_dlt(rng):
     x2 = (Xc2 / Xc2[:, 2:3]).astype(np.float32)
     check(jtri.triangulate_dlt, ttri.triangulate_dlt, x1, x2, P1, P2,
           rtol=5e-5)
+
+
+# ---------------------------------------------------------------------------
+# se3_log and Sim(3). Tolerances: se3_log goes through so3_log (atol 1e-5,
+# see the module docstring) and a 3x3 solve, so atol 2e-5 on O(1) values;
+# the Sim(3) exp/log in the four (sigma small?, theta small?) regimes of
+# `_sim3_W` at rtol 1e-5, atol 2e-5 (the sigma != 0, theta != 0 regime
+# subtracts O(1) terms and divides by theta^2 * (theta^2 + sigma^2)).
+# ---------------------------------------------------------------------------
+
+SIM3_REGIMES = {
+    # (theta scale, sigma scale)
+    "sigma0_theta0": (1e-6, 1e-7),
+    "sigma0_theta": (0.7, 1e-7),
+    "sigma_theta0": (1e-6, 0.3),
+    "sigma_theta": (0.7, 0.3),
+}
+
+
+def _sim3_tangent(rng, regime, n=16):
+    th, sg = SIM3_REGIMES[regime]
+    xi = np.concatenate([f32(rng, n, 3), f32(rng, n, 3, scale=th),
+                         f32(rng, n, 1, scale=sg)], -1)
+    return xi.astype(np.float32)
+
+
+def test_se3_log(rng):
+    xi = f32(rng, 32, 6, scale=0.8)
+    Rj, tj = jlie.se3_exp(jnp.array(xi))
+    R, t = np.array(Rj), np.array(tj)
+    check(jlie.se3_log, tlie.se3_log, R, t, atol=2e-5)
+    back = tlie.se3_log(*tlie.se3_exp(torch.from_numpy(xi))).numpy()
+    np.testing.assert_allclose(back, xi, atol=2e-5)
+    # at and next to the identity
+    xi0 = np.zeros((3, 6), np.float32)
+    xi0[1, 3] = 1e-6
+    xi0[2, :3] = 0.5
+    R0, t0 = (np.array(a) for a in jlie.se3_exp(jnp.array(xi0)))
+    check(jlie.se3_log, tlie.se3_log, R0, t0, atol=2e-5)
+
+
+@pytest.mark.parametrize("regime", sorted(SIM3_REGIMES))
+def test_sim3_W_regimes(rng, regime):
+    xi = _sim3_tangent(rng, regime)
+    check(jlie._sim3_W, tlie._sim3_W, xi[:, 3:6], xi[:, 6], atol=2e-5)
+
+
+@pytest.mark.parametrize("regime", sorted(SIM3_REGIMES))
+def test_sim3_exp_log(rng, regime):
+    xi = _sim3_tangent(rng, regime)
+    check(jlie.sim3_exp, tlie.sim3_exp, xi, atol=2e-5)
+    s, R, t = (np.array(a) for a in jlie.sim3_exp(jnp.array(xi)))
+    check(jlie.sim3_log, tlie.sim3_log, s, R, t, atol=2e-5)
+    back = tlie.sim3_log(*tlie.sim3_exp(torch.from_numpy(xi))).numpy()
+    np.testing.assert_allclose(back, xi, atol=2e-5)
+
+
+def test_sim3_group_ops(rng):
+    xa, xb = _sim3_tangent(rng, "sigma_theta"), _sim3_tangent(rng,
+                                                              "sigma_theta0")
+    Sa = [np.array(a) for a in jlie.sim3_exp(jnp.array(xa))]
+    Sb = [np.array(a) for a in jlie.sim3_exp(jnp.array(xb))]
+    X = f32(rng, 16, 3, scale=3.0)
+    check(jlie.sim3_compose, tlie.sim3_compose, *Sa, *Sb)
+    check(jlie.sim3_inv, tlie.sim3_inv, *Sa)
+    check(jlie.sim3_apply, tlie.sim3_apply, *Sa, X)
+    # S^-1 (S X) = X
+    St = [torch.from_numpy(a) for a in Sa]
+    Xt = torch.from_numpy(X)
+    back = tlie.sim3_apply(*tlie.sim3_inv(*St), tlie.sim3_apply(*St, Xt))
+    np.testing.assert_allclose(back.numpy(), X, atol=2e-5)

@@ -50,6 +50,7 @@ from ms_slam_tpu_torch.models.map_state import MapConfig
 from ms_slam_tpu_torch.models.vocab import KeyFrameDatabase
 from ms_slam_tpu_torch.ops.orb import OrbConfig
 from ms_slam_tpu_torch.pipeline.frontend import Calib, process_stereo_stacked
+from ms_slam_tpu_torch.pipeline.loop_closing import LoopCloser
 from ms_slam_tpu_torch.pipeline.sparsification import Sparsifier
 from ms_slam_tpu_torch.pipeline.system import System, SystemConfig
 from ms_slam_tpu_torch.utils import evaluate, synth
@@ -258,12 +259,33 @@ def test_memory_stats_counts_selector_removals():
     assert slam.compressed_map_points_in_map() == 0
 
 
-@pytest.mark.parametrize("flag", ["loop_closing", "use_imu"])
+@pytest.mark.parametrize("flag", ["use_imu"])
 def test_out_of_slice_config_raises(flag):
     cfg = _cfg(Calib, OrbConfig, MapConfig, SystemConfig)
     setattr(cfg, flag, True)
     with pytest.raises(NotImplementedError):
         System(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("sparsify", [False, True])
+def test_loop_closing_constructs_stage(sparsify):
+    """loop_closing=True builds a LoopCloser that shares the System's
+    keyframe database (which exists with sparsification off too), with the
+    reference's defaults for the loop keys."""
+    cfg = _cfg(Calib, OrbConfig, MapConfig, SystemConfig)
+    cfg.loop_closing = True
+    cfg.sparsify = sparsify
+    slam = System(cfg, device="cpu")
+    assert isinstance(slam._loop_closer, LoopCloser)
+    assert isinstance(slam.kf_db, KeyFrameDatabase)
+    assert slam._loop_closer.db is slam.kf_db
+    assert (slam._sparsifier is not None) == sparsify
+    assert slam._loop_closer.gen.device == slam.device
+    ref = JSystemConfig()
+    assert (cfg.loop_covis_min, cfg.loop_pitchroll_tol, cfg.loop_yaw_tol) \
+        == (ref.loop_covis_min, ref.loop_pitchroll_tol, ref.loop_yaw_tol)
+    assert System(_cfg(Calib, OrbConfig, MapConfig, SystemConfig),
+                  device="cpu")._loop_closer is None
 
 
 def _slice_cfg(calib_t, orb_t, map_t, cfg_t):
