@@ -43,10 +43,17 @@ Phases (any failure exits non-zero; there is no CPU path):
      keyframe's centre error smaller after the correction than before it,
      the mean error of the last 12 frames under 2% of the path, and one
      kernel launch per frame;
+  8. stereo-inertial at full width: phase 4's configuration with
+     use_imu=True at the reference's defaults, System.track_stereo_imu over
+     tests/test_inertial_system.py's scene (PlaneWorld, the "arc" path at
+     10 Hz, synth.make_imu at 200 Hz) with 8 blank frame pairs after
+     inertial stage 2, then one direct _full_inertial_ba() (see
+     phase_inertial for the bars and the cuts);
   then a JSON line of per-kernel results and the final JSON status line.
 
-Options, for work on one part: --kernel-only stops after phase 3 and
---loop-only runs phases 1-3 and 7; neither prints a status line.
+Options, for work on one part: --kernel-only stops after phase 3,
+--loop-only runs phases 1-3 and 7, --imu-only phases 1-3 and 8; none of
+them prints a status line.
 --parent DIR also builds the patch_gather.cu of another checkout of this
 repository (same C interface) and times the two kernels in turns in
 phase 3: parent, this, this, parent.
@@ -756,12 +763,328 @@ def phase_loop_closing():
     return launches
 
 
+IMU_FRAMES = 120        # 12 s at 10 Hz
+IMU_DT = 0.1
+IMU_RATE = 200          # rows a second (configs/EuRoC-Inertial.yaml)
+IMU_PATH_SCALE = 1.8    # the arc's 2.9 m stretched to 5.3 m over 120 frames
+IMU_BLANK = 8           # blank frame pairs of the blackout
+
+
+def phase_inertial():
+    """Stereo-inertial SLAM at full width: phase 4's configuration (1248x384,
+    2048 features, 8 levels, its map capacities and sparsifier parameters,
+    loop closing off) with use_imu=True at the reference's defaults
+    (imu_init_kfs=8, imu_init_time=1.0, SystemConfig's noise densities), Tbc
+    the identity (synth.make_imu takes camera = body), 10 Hz frames with
+    20 IMU rows each.
+
+    The scene is tests/test_inertial_system.py's: PlaneWorld(z_wall=14,
+    y_floor=2), make_trajectory(n, "arc"), and its blackout case's 8 blank
+    frame pairs. Cuts and changes against that test: KITTI geometry and 2048
+    features instead of 320x240 and 512; IMU_FRAMES = 120 frames instead of
+    65-70 with the arc's translation stretched by IMU_PATH_SCALE = 1.8, so
+    that the motion per frame stays the test's 4.4 cm while the run passes
+    the 5 s stage at the default imu_init_time; max_frames_between_kf=10 as
+    phase 4 instead of 3 (the inertial temporal rule sets the keyframe rate
+    anyway); the blackout starts 4 frames after stage 2 is reached instead
+    of at a fixed frame. Against configs/EuRoC-Inertial.yaml: its IMU rate
+    (200 Hz); synthetic noise-free rows instead of its sensor; 10 Hz frames
+    instead of 20 Hz; Tbc identity instead of its extrinsic.
+
+    Held: state OK at the end on Atlas map 0; imu_initialized and stage >= 2;
+    |norm(g) - 9.81| < 0.5 and g[1] / norm(g) > 0.95; RECENTLY_LOST seen in
+    the blackout and OK after it; ATE over the visible frames under 6% of the
+    path and under 2.5% before the blackout; track_full_imu taken on every
+    frame dispatched after the initialization; no sparsification window
+    before stage 2 and at least one by shutdown(); one patch-gather launch a
+    frame; after _full_inertial_ba() everything finite, gravity inside the
+    same bars, and the keyframe-centre RMSE against the truth not above 1.5
+    times its value before."""
+    from ms_slam_tpu_torch.models.map_state import MapConfig
+    from ms_slam_tpu_torch.ops import imu as imu_ops
+    from ms_slam_tpu_torch.ops import inertial_opt, orb
+    from ms_slam_tpu_torch.ops.orb import OrbConfig
+    from ms_slam_tpu_torch.pipeline import system as system_mod
+    from ms_slam_tpu_torch.pipeline.frontend import Calib
+    from ms_slam_tpu_torch.pipeline.system import System, SystemConfig
+    from ms_slam_tpu_torch.utils import evaluate, synth
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    calib = Calib(model=0, params=(FX, FX, W / 2, H / 2), bf=FX * BASELINE,
+                  width=W, height=H, th_depth=BASELINE * 40, fps=10.0)
+    cfg = SystemConfig(
+        calib=calib, orb=OrbConfig(n_features=2048, n_levels=8),
+        map=MapConfig(max_kf=128, max_mp=32768, n_feat=2048,
+                      local_mp_cap=4096, window_kf=6),
+        min_init_depth_points=300, max_frames_between_kf=10, ba_iters=6,
+        sparsify=True, sparsify_n=100, sparsify_lambda=500.0,
+        sparsify_grid_lambda=10.0, sparsify_window=30,
+        sparsify_queue_min=2, nonlocal_kf=3, use_imu=True)
+    poses = synth.make_trajectory(IMU_FRAMES, "arc")
+    for T in poses:
+        T[:3, 3] *= IMU_PATH_SCALE
+    imu_rows = synth.make_imu(poses, IMU_DT, imu_rate=IMU_RATE)
+    t0 = time.perf_counter()
+    frames = _render_all("PlaneWorld", dict(z_wall=14.0, y_floor=2.0), K,
+                         poses)
+    print(f"# inertial ({card}): rendered {IMU_FRAMES} stereo frames in "
+          f"{time.perf_counter() - t0:.1f} s; {len(imu_rows[0])} IMU rows a "
+          f"frame")
+    blank = np.zeros((H, W), np.uint8)
+
+    slam = System(cfg, device="cuda")
+    stage = {}
+    pvb = inertial_opt.pose_vel_bias_optimize
+    last_pvb = {}
+
+    def timed_pvb(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pvb(*a, **k)
+        torch.cuda.synchronize()
+        stage.setdefault("pose_vel_bias_optimize", []).append(
+            time.perf_counter() - t0)
+        last_pvb["args"] = (a, k)
+        return out
+    inertial_opt.pose_vel_bias_optimize = timed_pvb
+    integrate = imu_ops.integrate
+
+    def timed_integrate(bias, meas, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = integrate(bias, meas, *a, **k)
+        torch.cuda.synchronize()
+        key = ("integrate, one frame's rows" if meas.dim() == 2
+               else "integrate, a run of keyframe intervals")
+        stage.setdefault(key, []).append(time.perf_counter() - t0)
+        stage.setdefault(key + ": (intervals, rows)", []).append(
+            (1 if meas.dim() == 2 else meas.shape[0],
+             k.get("n_rows") or meas.shape[-2]))
+        return out
+    imu_ops.integrate = timed_integrate
+    track_full = system_mod.to.track_full
+    track_full_imu = system_mod.to.track_full_imu
+
+    def timed_track_imu(ms, calib_, orb_, frame, R_last, t_last, *a, **k):
+        """Times the inertial step; on every 5th one the visual step runs
+        first on the same frame from the same poses, on a copy of the map
+        (track_full updates point statistics in place)."""
+        n = len(stage.get("track_full_imu", []))
+        if n % 5 == 0:
+            R2, t2 = slam._Rt_dev2 if slam._Rt_dev2 is not None \
+                else (R_last, t_last)
+            copy = type(ms)(*[v.clone() for v in ms])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            track_full(copy, calib_, orb_, frame, R_last, t_last, R2, t2,
+                       slam._has_vel, *a[8:], **{kk: v for kk, v in k.items()
+                                                 if kk != "n_rows"})
+            torch.cuda.synchronize()
+            stage.setdefault("track_full, same frames", []).append(
+                time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = track_full_imu(ms, calib_, orb_, frame, R_last, t_last, *a, **k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stage.setdefault("track_full_imu", []).append(dt)
+        if n % 5 == 0:
+            stage.setdefault("track_full_imu, same frames", []).append(dt)
+        return out
+    system_mod.to.track_full_imu = timed_track_imu
+
+    torch.cuda.reset_peak_memory_stats()
+    orb.patch_gather_launches = 0
+    frame_s, states, stages, peaks = [], [], [], []
+    blank_from = None
+    imu_expected = 0
+    windows_before_stage2 = 0
+    for i in range(IMU_FRAMES):
+        if blank_from is None and slam._imu_stage >= 2:
+            blank_from = i + 4
+        dark = blank_from is not None \
+            and blank_from <= i < blank_from + IMU_BLANK
+        img_l, img_r = (blank, blank) if dark else frames[i]
+        imu_expected += int(slam.imu_initialized and slam.state == "OK")
+        if slam._imu_stage < 2:
+            windows_before_stage2 = slam._sparsifier.stats["windows"]
+        t0 = time.perf_counter()
+        if i == 0:
+            slam.track_stereo(img_l, img_r, 0.0)
+        else:
+            slam.track_stereo_imu(img_l, img_r, IMU_DT * i, imu_rows[i - 1])
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        states.append(slam.state)
+        stages.append((slam.imu_initialized, slam._imu_stage))
+        peaks.append((torch.cuda.max_memory_allocated(), len(slam.kf_order)))
+    slam._flush_pipeline()
+    torch.cuda.synchronize()
+    launches = orb.patch_gather_launches
+    imu_ops.integrate = integrate
+    system_mod.to.track_full_imu = track_full_imu
+    inertial_opt.pose_vel_bias_optimize = pvb
+
+    def first(pred):
+        return next((i for i, s in enumerate(stages) if pred(s)), None)
+    i_init, i_s2 = first(lambda s: s[0]), first(lambda s: s[1] >= 2)
+    _check(i_init is not None, "the IMU was never initialized")
+    _check(i_s2 is not None and blank_from is not None,
+           f"inertial stage {slam._imu_stage}: stage 2 never reached")
+    fs = np.asarray(frame_s)
+    vis = np.ones(IMU_FRAMES, bool)
+    vis[blank_from:blank_from + IMU_BLANK] = False
+    after = np.arange(IMU_FRAMES) > i_init
+    print(f"# inertial: initialized at frame {i_init}, stage 2 at frame "
+          f"{i_s2}, blackout frames {blank_from}-"
+          f"{blank_from + IMU_BLANK - 1}; "
+          f"frames/s before initialization (frames 10-{i_init}) "
+          f"{(i_init - 9) / fs[10:i_init + 1].sum():.3f}, after it (visible "
+          f"frames) {(after & vis).sum() / fs[after & vis].sum():.3f}; frame "
+          f"wall p50 {np.percentile(fs, 50) * 1e3:.2f} ms, p95 "
+          f"{np.percentile(fs, 95) * 1e3:.2f} ms, max {fs.max() * 1e3:.2f} "
+          f"ms; keyframes {slam.keyframes_in_map()}, map points "
+          f"{slam.map_points_in_map()}; kernel launches {launches}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    # where the peak comes from: the frame after which it rose the most
+    rise = np.diff([p for p, _ in peaks], prepend=peaks[0][0])
+    i_rise = int(np.argmax(rise))
+    print(f"# inertial: the peak rose most at frame {i_rise} "
+          f"({peaks[i_rise - 1][0] / 2**20:.1f} -> "
+          f"{peaks[i_rise][0] / 2**20:.1f} MiB), with "
+          f"{peaks[i_rise][1]} keyframes created; "
+          f"{peaks[i_init][0] / 2**20:.1f} MiB at the initialization")
+    for k, v in slam.timing.items():
+        if k.startswith("imu_init") or k == "inertial_window_ba":
+            stage[f"System: {k}"] = v
+    for k in sorted(stage):
+        if k.endswith("(intervals, rows)"):
+            continue
+        v = np.asarray(stage[k])
+        shape = stage.get(k + ": (intervals, rows)")
+        extra = "" if shape is None else \
+            f"; (intervals, rows) from {min(shape)} to {max(shape)}"
+        print(f"# call {k:<40} n={len(v)} p50 "
+              f"{np.percentile(v, 50) * 1e3:.2f} ms max {v.max() * 1e3:.2f} "
+              f"ms (host clock between device syncs; {card}){extra}")
+
+    # what the cheap re-orthonormalization (lie.orthonormalize, 4 launches)
+    # saves over the quaternion round trip (lie.normalize_rotation, ~150) in
+    # the joint refinement: the last frame's call again, in turns
+    from ms_slam_tpu_torch.ops import lie
+    newton = lie.orthonormalize
+    a, k = last_pvb["args"]
+    turns = []
+    for name, fn in (("quaternion", lie.normalize_rotation),
+                     ("newton", newton), ("newton", newton),
+                     ("quaternion", lie.normalize_rotation)):
+        lie.orthonormalize = fn
+        ts = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pvb(*a, **k)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        turns.append(f"{name} {np.median(ts) * 1e3:.1f} ms "
+                     f"({int(res.n_inliers)} inliers)")
+    lie.orthonormalize = newton
+    print("# call pose_vel_bias_optimize on the last frame's inputs, "
+          "re-orthonormalizing by, in turns (median of 7): "
+          + ", ".join(turns) + f" ({card})")
+
+    g = np.asarray(slam.gravity, np.float64)
+    print(f"# inertial: gravity {g.round(4).tolist()} (norm "
+          f"{np.linalg.norm(g):.4f}), bias gyro "
+          f"{np.float64(slam.imu_bias[:3]).round(5).tolist()} acc "
+          f"{np.float64(slam.imu_bias[3:]).round(5).tolist()}; inertial steps "
+          f"{slam.imu_frames} of {imu_expected} frames dispatched after the "
+          f"initialization; windows before stage 2: {windows_before_stage2}")
+
+    def gravity_ok(g):
+        n = float(np.linalg.norm(g))
+        return abs(n - 9.81) < 0.5 and g[1] / n > 0.95
+    _check(slam.state == "OK" and slam.active_map == 0,
+           f"final state {slam.state} on map {slam.active_map}")
+    _check(slam.imu_initialized and slam._imu_stage >= 2, "inertial stage")
+    _check(gravity_ok(g), f"gravity {g}")
+    dark_states = states[blank_from:blank_from + IMU_BLANK + 1]
+    _check("RECENTLY_LOST" in dark_states,
+           f"the blackout was not felt: {dark_states}")
+    _check(slam.imu_frames == imu_expected and imu_expected > 30,
+           f"{slam.imu_frames} inertial steps for {imu_expected} frames")
+    _check(windows_before_stage2 == 0,
+           f"{windows_before_stage2} windows solved before stage 2")
+    _check(launches == IMU_FRAMES,
+           f"patch_gather launched {launches} times for {IMU_FRAMES} frames")
+
+    def ate(rows):
+        est = np.stack([Twc[:3, 3] for _, Twc in rows])
+        gt = np.stack([poses[int(round(ts / IMU_DT))][:3, 3]
+                       for ts, _ in rows])
+        path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+        _check(np.isfinite(est).all(), "a pose is not finite")
+        return evaluate.ate_rmse(est, gt), path
+    rows = slam.poses_wc()
+    t_dark = (IMU_DT * blank_from - 1e-6,
+              IMU_DT * (blank_from + IMU_BLANK) - 1e-6)
+    a_vis, p_vis = ate([r for r in rows if not t_dark[0] <= r[0] < t_dark[1]])
+    a_pre, p_pre = ate([r for r in rows if r[0] < t_dark[0]])
+    print(f"# inertial: ATE over the visible frames {a_vis:.4f} m on a "
+          f"{p_vis:.2f} m path ({100 * a_vis / p_vis:.3f}%, bar 6%); before "
+          f"the blackout {a_pre:.4f} m on {p_pre:.2f} m "
+          f"({100 * a_pre / p_pre:.3f}%, bar 2.5%)")
+    _check(a_vis < 0.06 * p_vis, "ATE over the visible frames above 6%")
+    _check(a_pre < 0.025 * p_pre, "ATE before the blackout above 2.5%")
+
+    def kf_rmse():
+        err = []
+        for slot in slam.kf_order:
+            T = slam._kf_pose(slot)
+            fid = int(slam.ms.kf_frame_id[slot])
+            err.append(np.linalg.norm(-T[:3, :3].T @ T[:3, 3]
+                                      - poses[fid][:3, 3]))
+        return float(np.sqrt(np.mean(np.square(err))))
+    before = kf_rmse()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam._full_inertial_ba()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    after_ba = kf_rmse()
+    g2 = np.asarray(slam.gravity, np.float64)
+    print(f"# inertial: _full_inertial_ba over {len(slam.kf_order)} keyframes "
+          f"{full_s * 1e3:.1f} ms ({card}); keyframe-centre RMSE "
+          f"{before:.4f} m before, {after_ba:.4f} m after; gravity "
+          f"{g2.round(4).tolist()}")
+    ms = slam.ms
+    _check(all(bool(torch.isfinite(t).all()) for t in (ms.kf_R, ms.kf_t,
+                                                       ms.mp_pos))
+           and np.isfinite(slam.kf_velocities).all()
+           and np.isfinite(slam.imu_bias).all(), "non-finite after the BA")
+    _check(gravity_ok(g2), f"gravity after the BA {g2}")
+    _check(after_ba <= 1.5 * before + 1e-4,
+           f"keyframe RMSE {before:.4f} -> {after_ba:.4f} m")
+    slam.shutdown()
+    torch.cuda.synchronize()
+    n_win = slam._sparsifier.stats["windows"]
+    print(f"# inertial: sparsification windows by shutdown(): {n_win}")
+    _check(n_win >= 1, "no sparsification window by shutdown()")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after phase 3 (no status line is printed)")
     ap.add_argument("--loop-only", action="store_true",
                     help="phases 1-3 and 7 only (no status line is printed)")
+    ap.add_argument("--imu-only", action="store_true",
+                    help="phases 1-3 and 8 only (no status line is printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
                     "builds its patch_gather.cu and times the two kernels "
@@ -771,20 +1094,23 @@ def main():
     phase_build()
     kern = phase_kernel(args.parent)
     by_phase = {}
-    if not (args.kernel_only or args.loop_only):
+    part = args.kernel_only or args.loop_only or args.imu_only
+    if not part:
         run = phase_main_path()
         by_phase["main_path"] = run["launches"]
         by_phase["relocalization"] = phase_relocalize(run)
         phase_ties_and_selector(run["window"])
-    if not args.kernel_only:
+    if not (args.kernel_only or args.imu_only):
         by_phase["loop_closing"] = phase_loop_closing()
+    if not (args.kernel_only or args.loop_only):
+        by_phase["inertial"] = phase_inertial()
     print(json.dumps({"kernels": [{
         "name": "patch_gather", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",
         "replaces": "ms_slam_tpu/ops/orb.py:665",
         "launches": sum(by_phase.values()) if by_phase else None,
         "launches_by_phase": by_phase, **kern}]}))
-    if args.kernel_only or args.loop_only:
+    if part:
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

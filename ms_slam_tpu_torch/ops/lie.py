@@ -149,6 +149,24 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return _eye(3, w).expand(W.shape) + b * W + c * W2
 
 
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian J_r(w) = J_l(-w) (IMU::IntegratedRotation's rightJ)."""
+    return so3_left_jacobian(-w)
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian, closed form."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small, th = _safe_theta(theta2)
+    W = hat(w)
+    W2 = W @ W
+    coef = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        1.0 / torch.where(small, torch.ones_like(theta2), theta2)
+        - (1.0 + torch.cos(th)) / (2.0 * th * torch.sin(th)))[..., None, None]
+    return _eye(3, w).expand(W.shape) + 0.5 * W + coef * W2
+
+
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form batched 3x3 inverse (adjugate / determinant)."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -202,6 +220,15 @@ def solve_psd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation back onto SO(3) by a quaternion round trip."""
     return _quat_to_rot(rot_to_quat(R))
+
+
+def orthonormalize(R: torch.Tensor) -> torch.Tensor:
+    """One Newton step of the polar decomposition, R (3 I - R^T R) / 2. For
+    a product of rotations (orthonormal to rounding e) the result is
+    orthonormal to e^2, in 4 small operations where `normalize_rotation`'s
+    quaternion round trip takes about 150: the solvers that re-project a
+    rotation inside every iteration use this one."""
+    return 0.5 * (R @ (3.0 * _eye(3, R) - R.transpose(-1, -2) @ R))
 
 
 def se3_exp(xi: torch.Tensor):

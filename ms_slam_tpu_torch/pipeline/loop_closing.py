@@ -27,8 +27,10 @@ What differs from the reference, by need:
   spent inside the frame that closes the first loop.
 - Edge tables are built at their exact length (the reference pads them to a
   power of two to keep compiled shapes; padding edges have weight 0).
-- With the IMU's gravity observed the reference takes the 4-DoF graph and
-  the full inertial BA; inertial mode is not ported, so that case raises.
+- With the IMU's gravity observed (inertial stage 2) a correction must pass
+  the yaw-only gate, the essential graph is the 4-DoF one (yaw about the
+  gravity axis and translation) and `System._full_inertial_ba` follows the
+  global BA.
 
 `LoopCloser._hyp`, `System.kf_order`, `System.kf_maps` and
 `System.active_map` are plain Python/numpy values in both packages, so a
@@ -674,10 +676,6 @@ class LoopCloser:
     def _fuse_and_optimize(self, cur: int, match: int, weld: bool = False):
         sys = self.sys
         dev = sys.device
-        if self._inertial_ready():
-            raise NotImplementedError(
-                "loop correction in inertial mode (4-DoF essential graph + "
-                "full inertial BA) is not ported yet (ROADMAP queue 1)")
         # re-point stale point->reference-keyframe links before the graph
         # moves points by their reference's pose delta (slots recycle)
         sys.ms = ms = M.refresh_mp_refs(sys.ms)
@@ -721,6 +719,16 @@ class LoopCloser:
                 e_mask, n_iters=10)
             sys.ms = _apply_sim3_graph(ms, old_R, old_t, res7.s, res7.R,
                                        res7.t)
+        elif self._inertial_ready():
+            # gravity observed: the graph may only redistribute yaw and
+            # translation (ref OptimizeEssentialGraph4DoF)
+            g = torch.as_tensor(np.asarray(sys.gravity, np.float32),
+                                device=dev)
+            res = pose_graph.optimize_pose_graph_4dof(
+                ms.kf_R, ms.kf_t, -g, fixed, ei_d, ej_d, eR, et, ew_d,
+                e_mask, n_iters=10)
+            sys.ms = _reanchor_points(ms._replace(kf_R=res.R, kf_t=res.t),
+                                      old_R, old_t)
         else:
             res = pose_graph.optimize_pose_graph(
                 ms.kf_R, ms.kf_t, fixed, ei_d, ej_d, eR, et, ew_d, e_mask,
@@ -730,6 +738,10 @@ class LoopCloser:
         # global refinement (ref RunGlobalBundleAdjustment): alternating
         # whole-map BA anchored at the matched keyframe
         sys.ms = mo.global_ba(sys.ms, sys.calib, sys.orb, match, n_sweeps=2)
+        if self._inertial_ready():
+            # then poses, velocities and biases against the preintegration
+            # chain (ref Optimizer::FullInertialBA via LoopClosing.cc:2228)
+            sys._full_inertial_ba()
         self.loop_edges.append((cur, match))
         # tracking must re-localize against the corrected map: drop the
         # velocity model, reseed the device pose chain, and re-run the

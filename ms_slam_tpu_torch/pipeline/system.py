@@ -1,6 +1,7 @@
-"""System facade: the public API and the pipeline schedule (stereo visual).
+"""System facade: the public API and the pipeline schedule (stereo and
+stereo-inertial).
 
-Port of the stereo visual subset of `ms_slam_tpu/pipeline/system.py`:
+Port of the stereo subset of `ms_slam_tpu/pipeline/system.py`:
 `track_stereo` runs the frontend and dispatches the tracking step; the
 previous in-flight frame completes behind it (pipeline depth 2, as the
 reference), so host keyframe decisions lag the same frames as there.
@@ -17,9 +18,20 @@ With `loop_closing=True` every keyframe also goes to the LoopCloser:
 place recognition against the sparsified keyframes, confirmation over three
 keyframes, then the loop correction or the Atlas map merge.
 
+With `use_imu=True` frames after the first come through
+`track_stereo_imu` with the IMU rows since the previous frame. The IMU is
+initialized in stages from the keyframe chain (`_try_imu_init`); from then
+on every frame is predicted from the IMU and refined jointly in pose,
+velocity and bias (`tracking_ops.track_full_imu`), every keyframe runs the
+visual-inertial window BA on top of the visual one
+(`_inertial_window_ba`), a visual blackout is bridged by IMU propagation
+in the RECENTLY_LOST window, and a loop correction takes the 4-DoF graph
+and ends with the whole-chain inertial BA (`_full_inertial_ba`).
+
 The reference's tunnel workarounds (device-scalar cache, upload thread,
-batched fetches with `_complete_batch`) are not carried over. IMU and
-fisheye configurations raise at construction.
+batched fetches with `_complete_batch`) are not carried over. Fisheye
+configurations raise at construction; `track_monocular_imu` raises until
+the monocular front end is ported.
 """
 from __future__ import annotations
 
@@ -34,6 +46,8 @@ import torch
 
 from ..models import map_state as M
 from ..models.vocab import KeyFrameDatabase, place_scores
+from ..ops import imu as imu_ops
+from ..ops import inertial_opt
 from ..ops.lie import rot_to_quat
 from ..ops.orb import OrbConfig
 from . import mapping_ops as mo
@@ -48,9 +62,8 @@ PIPELINE_DEPTH = 2
 
 @dataclass
 class SystemConfig:
-    """The reference's SystemConfig fields that the stereo visual path
-    reads, with its defaults, plus the switch that selects a path not
-    ported yet (`use_imu`: it must stay off)."""
+    """The reference's SystemConfig fields that the stereo and
+    stereo-inertial paths read, with its defaults."""
 
     calib: Calib = None
     orb: OrbConfig = None
@@ -77,7 +90,22 @@ class SystemConfig:
     # inertial yaw-only loop gate tolerances (ref LoopClosing.cc:243-256)
     loop_pitchroll_tol: float = 0.008
     loop_yaw_tol: float = 0.349
+    # inertial mode: IMU-aided prediction and the staged gravity/bias
+    # initialization (ref LocalMapping::InitializeIMU schedule)
     use_imu: bool = False
+    imu_init_kfs: int = 8
+    imu_init_time: float = 1.0
+    # the last Nd temporal keyframes are never culled in inertial mode (ref
+    # KeyFrameCulling Nd=21; smaller default for small feature budgets)
+    imu_protect_nd: int = 10
+    # continuous-time IMU noise densities (ref IMU.NoiseGyro/NoiseAcc/
+    # GyroWalk/AccWalk yaml keys)
+    imu_noise_gyro: float = 1e-3
+    imu_noise_acc: float = 1e-2
+    imu_gyro_walk: float = 1e-6
+    imu_acc_walk: float = 1e-4
+    # body-from-camera extrinsic (ref IMU.T_b_c1), 4x4; None = identity
+    Tbc: object = None
     localization_only: bool = False
     # RECENTLY_LOST grace window before LOST, in seconds (ref
     # time_recently_lost, src/Tracking.cc:1947-2018)
@@ -100,15 +128,51 @@ class InFlight:
     timestamp: float
     frame: FrameData
     out: "to.TrackFullOut"
+    imu_used: bool = False
+
+
+INERTIAL_STATE_FIELDS = (
+    "imu_initialized", "_imu_stage", "_last_gravity_refit", "gravity",
+    "imu_bias", "vel_w", "kf_velocities", "_kf_imu_segments", "_kf_times",
+    "_imu_accum", "_last_ts", "_prev_completed_ts")
+
+
+def _copy_inertial_state(get) -> dict:
+    out = {}
+    for k in INERTIAL_STATE_FIELDS:
+        v = get(k, {"_imu_stage": 0, "_last_gravity_refit": -1e9}.get(k))
+        if k == "_kf_imu_segments":
+            v = [np.array(r, np.float32) for r in v]
+        elif k == "_imu_accum":
+            v = [(int(fid), np.array(r, np.float32)) for fid, r in v]
+        elif isinstance(v, np.ndarray):
+            v = v.copy()
+        elif isinstance(v, list):
+            v = list(v)
+        out[k] = v
+    return out
+
+
+def inertial_state_to_numpy(slam) -> dict:
+    """The inertial host state of a System as plain numpy/Python values
+    (copies). These fields are host values in the reference too, so the
+    same dict moves a state between the two packages' Systems."""
+    return _copy_inertial_state(lambda k, default: getattr(slam, k, default))
+
+
+def inertial_state_from_numpy(slam, d: dict):
+    """Set a System's inertial host state from `inertial_state_to_numpy`'s
+    dict; the device-side velocity and bias are reseeded from it."""
+    for k, v in _copy_inertial_state(d.get).items():
+        setattr(slam, k, v)
+    slam._v_dev = None
+    slam._bias_dev = None
 
 
 class System:
     def __init__(self, cfg: SystemConfig, device=None):
         """device: where the map and every step run; None means the CUDA
         card, and raises when there is none (the CPU only on request)."""
-        if cfg.use_imu:
-            raise NotImplementedError(
-                "SystemConfig.use_imu is not ported yet (ROADMAP queue 1)")
         if cfg.calib.is_fisheye_stereo or cfg.calib.model != 0:
             raise NotImplementedError("fisheye cameras are not ported yet")
         if device is None:
@@ -152,6 +216,31 @@ class System:
         self._lost_ts: Optional[float] = None
         self._lost_frames = 0
         self._pending_kf_info = None
+        self._prev_completed_ts: Optional[float] = None
+        # inertial host state (ref Tracking's IMU members)
+        self.Tbc = (np.eye(4, dtype=np.float64) if cfg.Tbc is None
+                    else np.asarray(cfg.Tbc, np.float64).reshape(4, 4))
+        self.Tcb = np.linalg.inv(self.Tbc)
+        self.imu_initialized = False
+        self._imu_stage = 0
+        self._last_gravity_refit = -1e9
+        self.gravity = None                       # (3,) world gravity
+        self.imu_bias = np.zeros(6, np.float32)   # [bg, ba]
+        self.vel_w = np.zeros(3, np.float32)      # body velocity (world)
+        self.kf_velocities = np.zeros((cfg.map.max_kf, 3), np.float32)
+        self._imu_frame_rows = None
+        self._kf_imu_segments: list = []          # raw rows per KF interval
+        self._imu_accum: list = []                # (frame id, rows) queued
+        self._kf_times: list = []
+        self._last_ts = None
+        self._v_dev = None                        # device body velocity
+        self._bias_dev = None                     # device [bg, ba]
+        self._Tbc_dev = (
+            torch.as_tensor(self.Tbc[:3, :3], dtype=torch.float32,
+                            device=self.device),
+            torch.as_tensor(self.Tbc[:3, 3], dtype=torch.float32,
+                            device=self.device))
+        self.imu_frames = 0      # frames tracked through track_full_imu
         # Atlas labels (host): the map id of each keyframe slot; a fresh map
         # starts after irrecoverable loss (ref Tracking::CreateMapInAtlas)
         self.active_map = 0
@@ -190,6 +279,25 @@ class System:
         self._tic(t0, "frontend")
         return self._advance(frame, timestamp)
 
+    def track_stereo_imu(self, img_l, img_r, timestamp: float,
+                         imu_rows) -> np.ndarray:
+        """Stereo-inertial step (ref System::TrackStereo with vImuMeas):
+        imu_rows (M,7) = [dt, ax, ay, az, gx, gy, gz], the measurements
+        since the previous frame."""
+        imu_rows = np.asarray(imu_rows, np.float32).reshape(-1, 7)
+        self._imu_frame_rows = imu_rows
+        # rows carry the id of the frame they precede: keyframe creation
+        # lags a frame behind dispatch, so the per-keyframe split must not
+        # swallow the next frame's measurements
+        self._imu_accum.append((self.frame_id + 1, imu_rows))
+        self._last_ts = timestamp
+        return self.track_stereo(img_l, img_r, timestamp)
+
+    def track_monocular_imu(self, img, timestamp: float, imu_rows):
+        raise NotImplementedError(
+            "track_monocular_imu needs the monocular front end, which is "
+            "not ported yet (ROADMAP queue 1 item 13)")
+
     @staticmethod
     def _as_uint8(img):
         a = np.asarray(img)
@@ -204,6 +312,7 @@ class System:
         if self.state == NOT_INITIALIZED:
             self._flush_pipeline()
             self._stereo_initialization(frame, timestamp)
+            self._imu_frame_rows = None
             self._tic(t0, "track")
             return self.current_pose()
         if self.state in (RECENTLY_LOST, LOST):
@@ -352,6 +461,12 @@ class System:
         self._has_vel = False
         self.vel = None
         self._lost_ts = None
+        if self.cfg.use_imu:
+            self._imu_accum = []
+            self._kf_times.append(timestamp)
+            # invariant: _kf_imu_segments[j] = the IMU rows between
+            # kf_order[j-1] and [j]; the first keyframe has no predecessor
+            self._kf_imu_segments.append(np.zeros((0, 7), np.float32))
         if self._loop_closer is not None:
             self._loop_closer.insert_keyframe(kf_slot)
         self._record(timestamp, lost=False)
@@ -373,20 +488,67 @@ class System:
             self._Rt_dev = (torch.as_tensor(self.last_R, device=dev),
                             torch.as_tensor(self.last_t, device=dev))
         R_last, t_last = self._Rt_dev
-        R_l2, t_l2 = (self._Rt_dev2 if self._Rt_dev2 is not None
-                      else (R_last, t_last))
-        out = to.track_full(
-            self.ms, self.calib, self.orb, frame, R_last, t_last, R_l2, t_l2,
-            self._has_vel, last_matched, self.ref_kf, cfg.map.local_mp_cap,
-            self._n_obs_dev, self._obs_mask_dev)
+        rows = self._imu_frame_rows
+        imu_used = bool(self.imu_initialized and rows is not None
+                        and len(rows))
+        if imu_used:
+            rows_p, valid = self._pad_imu_rows(rows)
+            f32 = torch.float32
+            if self._v_dev is None:
+                self._v_dev = torch.as_tensor(self.vel_w, dtype=f32,
+                                              device=dev)
+            if self._bias_dev is None:
+                self._bias_dev = torch.as_tensor(self.imu_bias, dtype=f32,
+                                                 device=dev)
+            out = to.track_full_imu(
+                self.ms, self.calib, self.orb, frame, R_last, t_last,
+                self._v_dev, self._bias_dev,
+                torch.from_numpy(rows_p).to(dev),
+                torch.from_numpy(valid).to(dev),
+                torch.as_tensor(self.gravity, dtype=f32, device=dev),
+                self._imu_noise(), *self._Tbc_dev, last_matched,
+                self.ref_kf, cfg.map.local_mp_cap, self._n_obs_dev,
+                self._obs_mask_dev, n_rows=int(valid.sum()))
+            self._v_dev, self._bias_dev = out.v, out.bias
+            self.imu_frames += 1
+        else:
+            R_l2, t_l2 = (self._Rt_dev2 if self._Rt_dev2 is not None
+                          else (R_last, t_last))
+            out = to.track_full(
+                self.ms, self.calib, self.orb, frame, R_last, t_last, R_l2,
+                t_l2, self._has_vel, last_matched, self.ref_kf,
+                cfg.map.local_mp_cap, self._n_obs_dev, self._obs_mask_dev)
         self.ms = out.ms
         self._inflight.append(InFlight(frame_id=self.frame_id,
                                        timestamp=timestamp, frame=frame,
-                                       out=out))
+                                       out=out, imu_used=imu_used))
         self._Rt_dev2 = (R_last, t_last)
         self._Rt_dev = (out.R, out.t)
         self._has_vel = True
         self.last_matched = out.matched_mp
+        self._imu_frame_rows = None
+
+    IMU_ROW_CAP = 64
+
+    @classmethod
+    def _pad_imu_rows(cls, rows: np.ndarray):
+        """Pad an IMU batch to IMU_ROW_CAP rows; an overlong one is merged
+        pairwise first (dt adds, measurements dt-average)."""
+        cap = cls.IMU_ROW_CAP
+        while len(rows) > cap:
+            n = len(rows) // 2 * 2
+            a, b = rows[:n:2], rows[1:n:2]
+            dt = a[:, :1] + b[:, :1]
+            m = (a[:, 1:] * a[:, :1] + b[:, 1:] * b[:, :1]) / np.maximum(
+                dt, 1e-9)
+            merged = np.concatenate([dt, m], axis=1)
+            rows = (np.concatenate([merged, rows[n:]])
+                    if n < len(rows) else merged)
+        out = np.zeros((cap, 7), np.float32)
+        out[:len(rows)] = rows
+        valid = np.zeros(cap, bool)
+        valid[:len(rows)] = True
+        return out, valid
 
     def _complete_one(self):
         """Fetch and integrate the oldest in-flight frame: state machine,
@@ -422,6 +584,17 @@ class System:
         self.vel = T_now @ np.linalg.inv(T_last)
         self.last_R = R_np
         self.last_t = t_np
+        if fl.imu_used:
+            self.vel_w = packed[33:36].astype(np.float32)
+            self.imu_bias = packed[36:42].astype(np.float32)
+        elif cfg.use_imu:
+            # no inertial solution for this frame: velocity by difference
+            dt = (fl.timestamp - self._prev_completed_ts
+                  if self._prev_completed_ts is not None else 0.0)
+            if dt > 0:
+                c_now = -R_np.T @ t_np
+                c_last = -T_last[:3, :3].T @ T_last[:3, 3]
+                self.vel_w = ((c_now - c_last) / dt).astype(np.float32)
         if best_kf != self.ref_kf:
             self.ref_kf = best_kf
             self._ref_pose_np = (packed[21:30].reshape(3, 3).astype(np.float32),
@@ -432,10 +605,19 @@ class System:
         c1a = fl.frame_id >= self.last_kf_frame + cfg.max_frames_between_kf
         c1b = fl.frame_id >= self.last_kf_frame + cfg.min_frames_between_kf
         c2 = (n_inliers < self.n_inliers_ref * cfg.ref_ratio) or need_close
-        if ((c1a or (c1b and c2)) and n_inliers > 15
+        # inertial temporal rule: a keyframe at least every 0.25 s before
+        # the IMU is initialized and every 0.5 s after (ref
+        # Tracking.cc:3131-3138; the staged initialization needs a dense
+        # early keyframe chain)
+        c_imu = False
+        if cfg.use_imu and self._kf_times:
+            dt_kf = fl.timestamp - self._kf_times[-1]
+            c_imu = dt_kf >= (0.25 if not self.imu_initialized else 0.5)
+        if ((c1a or (c1b and c2) or c_imu) and n_inliers > 15
                 and not cfg.localization_only):
             self._create_keyframe(fl, R_np, t_np)
         self._record(fl.timestamp, lost=False, frame_id=fl.frame_id)
+        self._prev_completed_ts = fl.timestamp
 
     def _adopt_reloc(self, rl: "to.TrackOut", timestamp: float,
                      frame_id: int):
@@ -450,6 +632,7 @@ class System:
         self.last_matched = rl.matched_mp
         self._refresh_ref_pose()
         self._record(timestamp, lost=False, frame_id=frame_id)
+        self._prev_completed_ts = timestamp
 
     def _on_track_failure(self, fl: InFlight):
         """Tracking failed for frame fl: relocalize now, or enter the
@@ -490,6 +673,7 @@ class System:
             self.vel = None
             self._has_vel = False
             self._adopt_reloc(rl, timestamp, fid)
+            self._imu_frame_rows = None
             return
         if self.state == RECENTLY_LOST:
             self._extrapolate_pose()
@@ -509,11 +693,20 @@ class System:
                 self._lost_frames = 0
                 self._lost_ts = None
         self._record(timestamp, lost=True, frame_id=fid)
+        self._imu_frame_rows = None
 
     def _extrapolate_pose(self):
-        """Carry the pose forward through a blackout: constant velocity,
-        else hold (the reference's IMU branch needs use_imu)."""
-        if self.vel is not None:
+        """Carry the pose forward through a blackout: IMU propagation once
+        the IMU is initialized (ref PredictStateIMU in RECENTLY_LOST), else
+        constant velocity, else hold."""
+        rows = self._imu_frame_rows
+        if self.imu_initialized and rows is not None and len(rows):
+            T_pred, v_pred = self._predict_imu(self.current_pose())
+            self.last_R = T_pred[:3, :3].astype(np.float32)
+            self.last_t = T_pred[:3, 3].astype(np.float32)
+            self.vel_w = np.asarray(v_pred, np.float32)
+            self._v_dev = None
+        elif self.vel is not None:
             T = self.vel @ self.current_pose()
             self.last_R = T[:3, :3].astype(np.float32)
             self.last_t = T[:3, 3].astype(np.float32)
@@ -528,6 +721,7 @@ class System:
         saved_fid = self.frame_id
         for s in stale:
             self.frame_id = s.frame_id
+            self._imu_frame_rows = None      # conservative: visual re-track
             self._dispatch_track(s.frame, s.timestamp)
         self.frame_id = saved_fid
 
@@ -679,12 +873,57 @@ class System:
         self._flush_pending_info()
         self._pending_kf_info = (slot, ko.info)
         self._tic(t0, "keyframe_step")
+        if cfg.use_imu:
+            # split the queued IMU rows at this keyframe's frame id (rows of
+            # newer frames still in flight stay queued)
+            take = [r for f, r in self._imu_accum if f <= fl.frame_id]
+            self._imu_accum = [(f, r) for f, r in self._imu_accum
+                               if f > fl.frame_id]
+            self._kf_imu_segments.append(
+                np.concatenate(take) if take
+                else np.zeros((0, 7), np.float32))
+            self._kf_times.append(fl.timestamp)
+            self.kf_velocities[slot] = self.vel_w
+            t1 = time.perf_counter()
+            stage = self._imu_stage
+            refit = self._last_gravity_refit
+            self._try_imu_init()
+            if self._last_gravity_refit != refit:
+                self._tic(t1, f"imu_init_stage{stage}"
+                          if self._imu_stage != stage else "imu_init_refresh")
+            # the visual-inertial window BA on EVERY keyframe once the IMU
+            # is initialized (ref LocalMapping.cc:150-155), on top of the
+            # visual window BA above: continuous gravity observation keeps
+            # pitch/roll drift inside the yaw-only loop gate
+            if self.imu_initialized:
+                t2 = time.perf_counter()
+                self._inertial_window_ba(slot)
+                self._tic(t2, "inertial_window_ba")
 
     def _cull_policy(self):
-        """Keyframe-culling inputs: in the visual configuration any
-        keyframe may go at the 0.9 redundancy bar (the reference's inertial
-        protections need use_imu, which is not ported)."""
-        return None, 0.9
+        """Keyframe-culling inputs (ref LocalMapping::KeyFrameCulling). The
+        visual configuration lets any keyframe go at the 0.9 redundancy bar.
+        Stereo-inertial: the bar is 0.5, and a keyframe may only go when
+        the map holds more than Nd keyframes, it is older than the last 2,
+        it has temporal neighbours, and removing it keeps the merged
+        preintegration gap under 0.5 s (3 s once the IMU is initialized
+        and the keyframe is outside the last Nd)."""
+        cfg = self.cfg
+        if not cfg.use_imu:
+            return None, 0.9
+        cullable = np.zeros(cfg.map.max_kf, bool)
+        n = len(self.kf_order)
+        nd = cfg.imu_protect_nd
+        if n > nd:
+            t = self._kf_times
+            for j in range(1, min(n - 2, len(t) - 1)):
+                gap = t[j + 1] - t[j - 1]
+                older = j < n - nd
+                if (self.imu_initialized and older and gap < 3.0) \
+                        or gap < 0.5:
+                    cullable[self.kf_order[j]] = True
+        red_th = 0.5 if (self.calib.bf or 0.0) > 0.0 else 0.9
+        return torch.from_numpy(cullable).to(self.device), red_th
 
     def _integrate_kf_info(self, slot: int, info: np.ndarray):
         """Apply a keyframe step's packed scalars to the host schedule
@@ -730,12 +969,352 @@ class System:
                 self.ref_kf = parent
                 self._refresh_ref_pose()
             self.kf_order.pop(i)
+            if self.cfg.use_imu:
+                # segments[j] = the IMU rows between kf_order[j-1] and [j]:
+                # removing keyframe i merges intervals (i-1, i) and (i, i+1)
+                # (ref Preintegrated::MergePrevious via KeyFrameCulling)
+                if i < len(self._kf_imu_segments):
+                    seg_in = self._kf_imu_segments.pop(i)
+                    if i == 0:
+                        # the new first keyframe has no predecessor
+                        if self._kf_imu_segments:
+                            self._kf_imu_segments[0] = np.zeros(
+                                (0, 7), np.float32)
+                    elif i < len(self._kf_imu_segments):
+                        self._kf_imu_segments[i] = np.concatenate(
+                            [seg_in, self._kf_imu_segments[i]])
+                if i < len(self._kf_times):
+                    self._kf_times.pop(i)
 
     def _flush_pending_info(self):
         if self._pending_kf_info is not None:
             slot, info = self._pending_kf_info
             self._pending_kf_info = None
             self._integrate_kf_info(slot, info.cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # inertial helpers
+    # ------------------------------------------------------------------
+
+    def _last_frame_dt(self) -> float:
+        if len(self.trajectory) >= 1 and self._last_ts is not None:
+            return max(self._last_ts - self.trajectory[-1].timestamp, 0.0)
+        return 0.0
+
+    @staticmethod
+    def _integrate_np(rows, bg, ba):
+        """Plain numpy preintegration in float64 on the host (prediction
+        only, no covariance)."""
+        from scipy.spatial.transform import Rotation
+        dR = np.eye(3)
+        dV = np.zeros(3)
+        dP = np.zeros(3)
+        dT = 0.0
+        for r in rows:
+            dt = float(r[0])
+            acc = r[1:4] - ba
+            gyr = r[4:7] - bg
+            a_w = dR @ acc
+            dP = dP + dV * dt + 0.5 * a_w * dt * dt
+            dV = dV + a_w * dt
+            dR = dR @ Rotation.from_rotvec(gyr * dt).as_matrix()
+            dT += dt
+        return dR, dV, dP, dT
+
+    def _predict_imu(self, T_last):
+        """Propagate the last body state across the frame interval (ref
+        Tracking::PredictStateIMU; the body pose through the T_bc
+        extrinsic). Returns the predicted T_cw and body velocity."""
+        bg, ba = self.imu_bias[:3], self.imu_bias[3:]
+        dR, dV, dP, dT = self._integrate_np(self._imu_frame_rows, bg, ba)
+        T_wb = np.linalg.inv(T_last) @ self.Tcb
+        R_wb, p_wb = T_wb[:3, :3], T_wb[:3, 3]
+        g = self.gravity
+        T_wb2 = np.eye(4)
+        T_wb2[:3, :3] = R_wb @ dR
+        T_wb2[:3, 3] = p_wb + self.vel_w * dT + 0.5 * g * dT * dT \
+            + R_wb @ dP
+        v2 = self.vel_w + g * dT + R_wb @ dV
+        return np.linalg.inv(T_wb2 @ self.Tbc).astype(np.float64), v2
+
+    def _imu_noise(self):
+        cfg = self.cfg
+        return (cfg.imu_noise_gyro, cfg.imu_noise_acc, cfg.imu_gyro_walk,
+                cfg.imu_acc_walk)
+
+    def _preintegrate_segments(self, segs, bias):
+        """One batched preintegration of a run of keyframe intervals:
+        (stacked PreintState with a leading len(segs) axis, (len(segs),)
+        bool numpy mask of the intervals that hold rows)."""
+        cap = max(max((len(x) for x in segs), default=1), 1)
+        meas = np.zeros((len(segs), cap, 7), np.float32)
+        valid = np.zeros((len(segs), cap), bool)
+        for i, seg in enumerate(segs):
+            meas[i, :len(seg)] = seg
+            valid[i, :len(seg)] = True
+        dev = self.device
+        sts = imu_ops.integrate(
+            torch.as_tensor(bias, dtype=torch.float32, device=dev),
+            torch.from_numpy(meas).to(dev), torch.from_numpy(valid).to(dev),
+            *self._imu_noise())
+        return sts, valid.any(1)
+
+    def _body_poses(self, sl):
+        """Body poses T_wb = T_wc T_cb of the keyframe slots `sl` (tensor):
+        (R_wb (n,3,3), p_wb (n,3))."""
+        R_cw = self.ms.kf_R[sl]
+        R_wc = R_cw.transpose(-1, -2)
+        p_wc = -(R_wc @ self.ms.kf_t[sl][..., None])[..., 0]
+        Rcb = torch.as_tensor(self.Tcb[:3, :3], dtype=R_cw.dtype,
+                              device=self.device)
+        pcb = torch.as_tensor(self.Tcb[:3, 3], dtype=R_cw.dtype,
+                              device=self.device)
+        return R_wc @ Rcb, R_wc @ pcb + p_wc
+
+    def _try_imu_init(self):
+        """Staged IMU initialization (ref LocalMapping::InitializeIMU): with
+        enough keyframes and baseline time, the gravity and bias MAP
+        estimate of `inertial_opt.inertial_init`; re-estimated at 5 s and
+        15 s, plus a gravity/bias refresh every ~1 s of new baseline until
+        15 s (the window BA holds gravity nearly fixed, so an early rough
+        gravity must be refreshed as the baseline grows)."""
+        cfg = self.cfg
+        n_int = len(self.kf_order) - 1       # real preintegration intervals
+        if not cfg.use_imu or n_int < cfg.imu_init_kfs + 1:
+            return
+        elapsed = self._kf_times[-1] - self._kf_times[0]
+        if elapsed < cfg.imu_init_time:
+            return
+        stage = self._imu_stage
+        thresholds = [cfg.imu_init_time, 5.0, 15.0]
+        due_stage = stage < len(thresholds) and elapsed >= thresholds[stage]
+        last_g = self._last_gravity_refit
+        due_refresh = (stage >= 1 and elapsed < 15.0
+                       and elapsed - last_g >= 1.0)
+        # mono-inertial: the metric scale is re-fitted every ~10 s until
+        # 75 s (ref LocalMapping::ScaleRefinement)
+        mono = (self.calib.bf or 0.0) <= 0.0
+        due_scale = (mono and stage >= 1 and elapsed < 75.0
+                     and elapsed - last_g >= 10.0)
+        if not (due_stage or due_refresh or due_scale):
+            return
+        # The stage and refit markers advance only AFTER a solve that
+        # succeeded: an early return here must not skip a stage.
+        # Trailing run of non-empty segments (segment j = interval
+        # (j-1, j); segment 0 and blackout intervals are empty and cannot
+        # enter the unmasked chain), at most the last 20 intervals.
+        n = len(self.kf_order)
+        a = max(1, n - 20)
+        for j in range(n - 1, a - 1, -1):
+            if len(self._kf_imu_segments[j]) == 0:
+                a = j + 1
+                break
+        if a >= n:
+            return
+        segs = self._kf_imu_segments[a:]
+        if len(segs) + 1 < 3:
+            return
+        sl = torch.as_tensor(self.kf_order[a - 1:], dtype=torch.long,
+                             device=self.device)
+        sts, _ = self._preintegrate_segments(segs, np.zeros(6, np.float32))
+        R_wb, p_wb = self._body_poses(sl)
+        res = inertial_opt.inertial_init(R_wb, p_wb, sts, prior_g=1e2,
+                                         prior_a=1e5, with_scale=mono)
+        gI = torch.tensor([0.0, 0.0, -9.81], dtype=R_wb.dtype,
+                          device=self.device)
+        # sync: the initialization's result comes to the host
+        pk = torch.cat([res.R_wg @ gI, res.bg, res.ba, res.scale[None],
+                        res.vels[-1]]).cpu().numpy()
+        g_est = pk[:3].astype(np.float64)
+        if not np.all(np.isfinite(g_est)):
+            return
+        if mono:
+            # a degenerate solve (scale < 0.1) is rejected, and the map is
+            # touched only for a correction that matters (ref
+            # ScaleRefinement: |s - 1| > 0.002)
+            sc = float(pk[9])
+            if not np.isfinite(sc) or sc < 0.1:
+                return
+            if abs(sc - 1.0) > 2e-3:
+                self._apply_map_scale(sc)
+        if due_stage:
+            self._imu_stage = stage + 1
+        self._last_gravity_refit = elapsed
+        self.gravity = g_est.astype(np.float32)
+        self.imu_bias = pk[3:9].astype(np.float32)
+        self.vel_w = pk[10:13].astype(np.float32)
+        self.imu_initialized = True
+        # the device-side inertial chain restarts from the new estimates
+        self._v_dev = None
+        self._bias_dev = None
+
+    def _apply_map_scale(self, s: float):
+        """Rescale the whole world by s (the mono-inertial metric
+        correction, ref Map::ApplyScaledRotation with R = I): positions,
+        camera translations, velocities and the recorded trajectory scale;
+        rotations and gravity (metric) do not."""
+        s = float(s)
+        ms = self.ms
+        self.ms = ms._replace(
+            mp_pos=ms.mp_pos * s, kf_t=ms.kf_t * s,
+            mp_min_dist=ms.mp_min_dist * s, mp_max_dist=ms.mp_max_dist * s,
+            kp_depth=torch.where(ms.kp_depth > 0, ms.kp_depth * s,
+                                 ms.kp_depth))
+        self.kf_velocities = self.kf_velocities * s
+        if self.vel_w is not None:
+            self.vel_w = (np.asarray(self.vel_w) * s).astype(np.float32)
+        self.last_t = (np.asarray(self.last_t) * s).astype(np.float32)
+        if self.vel is not None:
+            self.vel = np.asarray(self.vel).copy()
+            self.vel[:3, 3] *= s
+        R_ref, t_ref = self._ref_pose_np
+        self._ref_pose_np = (R_ref,
+                             (np.asarray(t_ref) * s).astype(np.float32))
+        for e in self.trajectory:
+            e.T_cr[:3, 3] *= s
+        # device pose and velocity handles are at the old scale, and so
+        # are the tracks of the frames in flight
+        self._Rt_dev = None
+        self._Rt_dev2 = None
+        self._v_dev = None
+        self._redispatch_inflight()
+
+    def _window_factors(self, sl, kf_mask):
+        """The visual factor table of the keyframe slots `sl` (tensor), one
+        row per feature: (f_pt, f_kf, f_uv, f_ur, f_sigma2, f_valid)."""
+        ms = self.ms
+        obs = ms.obs_mp[sl]
+        n, Wn = obs.shape
+        f_valid = (obs >= 0) & ms.kp_valid[sl] & kf_mask[:, None]
+        f_kf = torch.arange(n, device=self.device)[:, None].expand(n, Wn)
+        s2 = torch.tensor([sc * sc for sc in self.orb.level_scales()],
+                          dtype=torch.float32, device=self.device)
+        return (obs.clamp(min=0).reshape(-1), f_kf.reshape(-1),
+                ms.kp_xy[sl].reshape(-1, 2), ms.kp_uright[sl].reshape(-1),
+                s2[ms.kp_octave[sl].long()].reshape(-1), f_valid.reshape(-1))
+
+    def _adopt_vi_result(self, res, slots, sl, kf_mask) -> bool:
+        """Write a visual-inertial BA's result into the map and the host
+        state. A solve that blew up (e.g. a degenerate window) is dropped
+        rather than written. Returns whether it was written."""
+        n = len(slots)
+        # sync: one fetch decides the write-back and brings the host state
+        pk = torch.cat([
+            torch.stack([torch.isfinite(a).all() for a in (
+                res.R_wb, res.p_wb, res.vels, res.g, res.bg, res.ba,
+                res.mp_pos)]).to(res.vels.dtype),
+            res.vels.reshape(-1), res.bg, res.ba, res.g]).cpu().numpy()
+        if not pk[:7].all():
+            return False
+        Rbc, pbc = self._Tbc_dev
+        R_cw_new = (res.R_wb @ Rbc).transpose(-1, -2)
+        p_wc_new = res.R_wb @ pbc + res.p_wb
+        t_cw_new = -(R_cw_new @ p_wc_new[..., None])[..., 0]
+        kf_R = self.ms.kf_R.clone()
+        kf_t = self.ms.kf_t.clone()
+        kf_R[sl] = torch.where(kf_mask[:, None, None], R_cw_new, kf_R[sl])
+        kf_t[sl] = torch.where(kf_mask[:, None], t_cw_new, kf_t[sl])
+        self.ms = self.ms._replace(mp_pos=res.mp_pos, kf_R=kf_R, kf_t=kf_t)
+        self.kf_velocities[slots] = pk[7:7 + 3 * n].reshape(n, 3)
+        self.imu_bias = pk[7 + 3 * n:13 + 3 * n].astype(np.float32)
+        self.gravity = pk[13 + 3 * n:16 + 3 * n].astype(np.float32)
+        self._v_dev = None
+        self._bias_dev = None
+        return True
+
+    def _full_inertial_ba(self):
+        """The whole-chain inertial BA (ref Optimizer::FullInertialBA, run
+        after a loop correction in IMU mode): ONE joint optimization over
+        the active map's temporal chain: poses, velocities, shared bias,
+        gravity direction and landmarks (`inertial_opt.vi_full_ba`). The
+        chain is taken at its exact length (the reference pads it to a power
+        of two to keep one compiled program)."""
+        n = len(self.kf_order)
+        if n < 3:
+            return
+        # the active map's suffix: the preintegration chain breaks at a map
+        # switch, so keyframes of older maps stay out
+        start0 = 0
+        for i in range(n - 1, -1, -1):
+            if self.kf_maps[self.kf_order[i]] != self.active_map:
+                start0 = i + 1
+                break
+        chain = n - start0
+        if chain < 3:
+            return
+        dev = self.device
+        slots = self.kf_order[start0:]
+        sl = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        sts, pv = self._preintegrate_segments(
+            self._kf_imu_segments[start0 + 1:start0 + chain], self.imu_bias)
+        R_wb, p_wb = self._body_poses(sl)
+        kf_mask = self.ms.kf_valid[sl]
+        f32 = torch.float32
+        res = inertial_opt.vi_full_ba(
+            self.calib.model, self.calib.params_array(dev), self.calib.bf,
+            R_wb, p_wb,
+            torch.as_tensor(self.kf_velocities[slots], dtype=f32, device=dev),
+            kf_mask, sts, torch.from_numpy(pv).to(dev),
+            torch.as_tensor(self.imu_bias[:3], dtype=f32, device=dev),
+            torch.as_tensor(self.imu_bias[3:], dtype=f32, device=dev),
+            torch.as_tensor(self.gravity, dtype=f32, device=dev),
+            self.ms.mp_pos, *self._window_factors(sl, kf_mask),
+            walk_info=torch.full((6,), 1e8, dtype=f32, device=dev),
+            R_bc=self._Tbc_dev[0], t_bc=self._Tbc_dev[1])
+        if self._adopt_vi_result(res, slots, sl, kf_mask):
+            self.vel_w = self.kf_velocities[slots[-1]]
+
+    def _inertial_window_ba(self, new_slot: int, W: Optional[int] = None,
+                            start: Optional[int] = None):
+        """Visual-inertial local BA over the temporal window (ref
+        Optimizer::LocalInertialBA): jointly refine W keyframes' poses and
+        velocities, the shared biases, the gravity direction AND their
+        observed landmarks against the preintegration chain, with every
+        other valid keyframe that observes window points as a fixed anchor
+        (ref lFixedKeyFrames). start: index into kf_order of the window's
+        first keyframe (default: the window that ends at the newest)."""
+        del new_slot
+        W = min(6 if W is None else W, len(self.kf_order))
+        if start is None:
+            start = len(self.kf_order) - W
+        dev = self.device
+        ms = self.ms
+        slots = self.kf_order[start:start + W]     # temporal, newest last
+        sl = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        sts, pv = self._preintegrate_segments(
+            self._kf_imu_segments[start + 1:start + W], self.imu_bias)
+        R_wb, p_wb = self._body_poses(sl)
+        kf_mask = ms.kf_valid[sl]
+        Kc, Wn = ms.obs_mp.shape
+        in_window = torch.zeros(Kc, dtype=torch.bool, device=dev)
+        in_window[sl] = True
+        a_valid = (ms.obs_mp >= 0) & ms.kp_valid \
+            & (ms.kf_valid & ~in_window)[:, None]
+        a_cam = torch.arange(Kc, device=dev)[:, None].expand(Kc, Wn)
+        s2 = torch.tensor([sc * sc for sc in self.orb.level_scales()],
+                          dtype=torch.float32, device=dev)
+        f32 = torch.float32
+        res = inertial_opt.vi_window_ba(
+            self.calib.model, self.calib.params_array(dev), self.calib.bf,
+            R_wb, p_wb,
+            torch.as_tensor(self.kf_velocities[slots], dtype=f32, device=dev),
+            kf_mask, sts, torch.from_numpy(pv).to(dev),
+            torch.as_tensor(self.imu_bias[:3], dtype=f32, device=dev),
+            torch.as_tensor(self.imu_bias[3:], dtype=f32, device=dev),
+            torch.as_tensor(self.gravity, dtype=f32, device=dev),
+            ms.mp_pos, *self._window_factors(sl, kf_mask),
+            ms.kf_R, ms.kf_t, a_cam.reshape(-1),
+            ms.obs_mp.clamp(min=0).reshape(-1), ms.kp_xy.reshape(-1, 2),
+            ms.kp_uright.reshape(-1), s2[ms.kp_octave.long()].reshape(-1),
+            a_valid.reshape(-1),
+            # bias random walk: tight per call (sigma ~1e-4); the shared
+            # biases should follow slow real walks, not absorb the visual
+            # map's drift
+            walk_info=torch.full((6,), 1e8, dtype=f32, device=dev),
+            R_bc=self._Tbc_dev[0], t_bc=self._Tbc_dev[1])
+        if self._adopt_vi_result(res, slots, sl, kf_mask) \
+                and slots and slots[-1] == self.kf_order[-1]:
+            self.vel_w = self.kf_velocities[slots[-1]]
 
     def _refresh_ref_pose(self):
         T = self._kf_pose(self.ref_kf)

@@ -1,10 +1,12 @@
 """Per-frame tracking compute.
 
-Port of `ms_slam_tpu/pipeline/tracking_ops.py` (visual path): motion-model
-association with motion-only LM, the widened retry and the appearance
-fallback, the local-keyframe vote, local-map tracking, point statistics,
-the keyframe-decision counters, and the prior-free PnP step that
-relocalization runs per candidate keyframe.
+Port of `ms_slam_tpu/pipeline/tracking_ops.py`: motion-model association
+with motion-only LM, the widened retry and the appearance fallback, the
+local-keyframe vote, local-map tracking, point statistics, the
+keyframe-decision counters, the prior-free PnP step that relocalization
+runs per candidate keyframe, and the inertial step `track_full_imu` (IMU
+preintegration and prediction in front of the same cascade, the joint
+pose-velocity-bias refinement behind it).
 
 The reference switches the retry and the fallback with `lax.cond`; here
 they are host branches on `n_inliers`, one device sync each (marked
@@ -19,7 +21,8 @@ from typing import NamedTuple
 import torch
 
 from ..models import map_state as M
-from ..ops import matching, pnp, pose_opt
+from ..ops import imu as imu_ops
+from ..ops import inertial_opt, lie, matching, pnp, pose_opt
 from ..ops.indexing import add_at_, set_at_, top_k
 from ..ops.orb import OrbConfig
 from .frontend import Calib, FrameData
@@ -127,7 +130,11 @@ class TrackFullOut(NamedTuple):
     """(33,) float32: [R row-major (9), t (3), motion_inliers, used_wide,
     used_fallback, local_inliers, n_close_tracked, n_close_untracked,
     best_local_kf, n_local_candidates, n_ref_matches, ref-KF R (9),
-    ref-KF t (3)] — the reference's packed layout, one fetch per frame."""
+    ref-KF t (3)] — the reference's packed layout, one fetch per frame.
+    `track_full_imu` appends the body velocity (33:36) and the bias
+    [bg, ba] (36:42)."""
+    v: torch.Tensor = None      # body velocity, world frame (inertial step)
+    bias: torch.Tensor = None   # [bg, ba] (inertial step)
 
 
 def _predict_const_velocity(R_last, t_last, R_last2, t_last2, has_vel):
@@ -181,10 +188,11 @@ def _track_core(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
     return ms, out4, stats_i, best_kf
 
 
-def _pack_stats(ms, R, t, stats_i, best_kf):
+def _pack_stats(ms, R, t, stats_i, best_kf, extra=()):
     return torch.cat([R.reshape(9).float(), t.float(), stats_i.float(),
                       ms.kf_R[best_kf].reshape(9).float(),
-                      ms.kf_t[best_kf].float()])
+                      ms.kf_t[best_kf].float(),
+                      *[e.float() for e in extra]])
 
 
 def track_full(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
@@ -203,6 +211,77 @@ def track_full(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
                         matched_mp=out4.matched_mp,
                         stats=_pack_stats(ms, out4.R, out4.t, stats_i,
                                           best_kf))
+
+
+def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
+                   frame: FrameData, R_last, t_last, v_last, bias, imu_rows,
+                   imu_valid, gravity, noise, R_bc, t_bc, last_matched,
+                   ref_kf: int, local_cap: int, n_obs_all=None, obs_mask=None,
+                   n_rows=None) -> TrackFullOut:
+    """The inertial tracking step: preintegrate the frame's IMU rows,
+    predict the pose from the last body state (ref
+    Tracking::PredictStateIMU), run the association cascade, then refine
+    [pose, velocity, bias] jointly against reprojection and the
+    preintegration factor (ref Optimizer::PoseInertialOptimizationLastFrame).
+    The body state chains on the device between frames.
+
+    imu_rows: (cap,7) padded [dt, ax..az, gx..gz], imu_valid its mask and
+    n_rows the count of leading valid rows when the caller knows it; noise:
+    the four continuous densities [gyro, acc, gyro_walk, acc_walk];
+    R_bc/t_bc: the extrinsic T_bc."""
+    preint = imu_ops.integrate(bias, imu_rows, imu_valid, *noise,
+                               n_rows=n_rows)
+
+    def body_of_cam(R_cw, t_cw):
+        """T_wb = T_wc T_cb from a camera pose T_cw."""
+        R_wc = R_cw.T
+        return R_wc @ R_cb, R_wc @ p_cb - R_wc @ t_cw
+
+    def cam_of_body(R_wb, p_wb):
+        """T_cw = (T_wb T_bc)^-1."""
+        R_cw = (R_wb @ R_bc).T
+        return R_cw, -R_cw @ (R_wb @ t_bc + p_wb)
+
+    R_cb = R_bc.T
+    p_cb = -R_cb @ t_bc
+    R_wb1, p_wb1 = body_of_cam(R_last, t_last)
+
+    # IMU state prediction across the interval
+    dT = preint.dT
+    R_wb2 = lie.orthonormalize(R_wb1 @ preint.dR)
+    v2 = v_last + gravity * dT + R_wb1 @ preint.dV
+    p_wb2 = p_wb1 + v_last * dT + 0.5 * gravity * dT * dT \
+        + R_wb1 @ preint.dP
+    R0, t0 = cam_of_body(R_wb2, p_wb2)
+
+    ms, out4, stats_i, best_kf = _track_core(
+        ms, calib, orb_cfg, frame, R0, t0, R_last, t_last, last_matched,
+        ref_kf, local_cap, n_obs_all, obs_mask)
+
+    # joint [T_wb, v, bg, ba] refinement seeded at the visual solution
+    R_wb4, p_wb4 = body_of_cam(out4.R, out4.t)
+    has = out4.matched_mp >= 0
+    X = ms.mp_pos[out4.matched_mp.clamp(min=0).long()]
+    pvb = inertial_opt.pose_vel_bias_optimize(
+        calib.model, calib.params_array(R0.device), calib.bf, R_bc, t_bc,
+        R_wb1, p_wb1, v_last, bias[:3], bias[3:], preint, R_wb4, p_wb4, v2,
+        X, frame.feats.xy, frame.u_right, frame.sigma2, has,
+        walk_info=torch.full((6,), 1e4, dtype=R_wb4.dtype,
+                             device=R_wb4.device), g=gravity)
+    # the joint solution is taken when it keeps at least as many inliers
+    use = (pvb.n_inliers >= out4.n_inliers) & (dT > 0)
+    R_c, t_c = cam_of_body(pvb.R_wb, pvb.p_wb)
+    R_n = torch.where(use, R_c, out4.R)
+    t_n = torch.where(use, t_c, out4.t)
+    v_n = torch.where(use, pvb.v, v2)
+    bias_n = torch.where(use, torch.cat([pvb.bg, pvb.ba]), bias)
+    matched = torch.where(use & ~pvb.inlier, -1, out4.matched_mp)
+    stats_i = stats_i.clone()
+    stats_i[3] = torch.where(use, pvb.n_inliers, out4.n_inliers)
+    return TrackFullOut(ms=ms, R=R_n, t=t_n, matched_mp=matched,
+                        stats=_pack_stats(ms, R_n, t_n, stats_i, best_kf,
+                                          extra=(v_n, bias_n)),
+                        v=v_n, bias=bias_n)
 
 
 def local_keyframes(ms: M.MapState, matched_mp, k: int, obs_mask=None):

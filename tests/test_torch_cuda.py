@@ -16,6 +16,12 @@ import torch
 
 from ms_slam_tpu_torch.ops import orb
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 
 def _inputs(rng, B=2, H=384, Wc=5888, n=512):
     canvas = rng.uniform(0, 255, (B, H, Wc)).astype(np.float32)
@@ -167,3 +173,119 @@ def test_deferred_fetch_on_card():
     d = _Deferred(x * 2)
     assert d.host.is_pinned() and d.event is not None
     np.testing.assert_array_equal(d.get(), 2 * np.arange(48).reshape(3, 16))
+
+
+def _imu_rows(rng, n_int, rows):
+    m = rng.normal(0, 0.3, (n_int, rows, 7)).astype(np.float32)
+    m[..., 0] = 0.005
+    m[..., 2] += 9.81
+    valid = np.ones((n_int, rows), bool)
+    valid[-1, rows // 2:] = False
+    return m, valid
+
+
+@pytest.mark.cuda
+def test_imu_integrate_card_against_cpu():
+    """The preintegration's recurrences on the card against the CPU, five
+    intervals of 60 rows: float32, 60 dependent 9x9 products, so 1e-4 of
+    each field's largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.ops import imu
+    m, valid = _imu_rows(np.random.default_rng(2), 5, 60)
+    bias = torch.tensor([0.01, -0.02, 0.005, 0.05, 0.02, -0.03])
+    noise = (1e-3, 1e-2, 1e-6, 1e-4)
+    cpu = imu.integrate(bias, torch.from_numpy(m), torch.from_numpy(valid),
+                        *noise)
+    card = imu.integrate(bias.cuda(), torch.from_numpy(m).cuda(),
+                         torch.from_numpy(valid).cuda(), *noise)
+    for k in imu.PreintState._fields:
+        a, b = getattr(cpu, k), getattr(card, k)
+        assert b.is_cuda, k
+        gap = float((a - b.cpu()).abs().max() / a.abs().max().clamp(min=1e-30))
+        assert gap < 1e-4, (k, gap)
+    Lc = imu.sqrt_information(cpu)
+    Lg = imu.sqrt_information(card).cpu()
+    r = torch.full((9,), 1e-3)
+    wc, wg = Lc.transpose(-1, -2) @ r, Lg.transpose(-1, -2) @ r
+    assert float((wc - wg).norm() / wc.norm()) < 2e-2   # cuSOLVER vs LAPACK
+
+
+@pytest.mark.cuda
+def test_vi_window_ba_card_against_cpu():
+    """The visual-inertial window BA on the card against the CPU on a
+    simulated window (5 keyframes, 150 points seen by all, two anchor
+    cameras). Five float32 Schur steps, sums added atomically on the card:
+    rotations and positions 2e-3, points 5e-3, gravity 2e-2 of 9.81."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.ops import imu, inertial_opt, lie
+    rng = np.random.default_rng(3)
+    W, n_a, n_pts, rows = 5, 2, 150, 40
+    n_kf = W + n_a
+    f32 = torch.float32
+    # a gentle motion sampled at 200 Hz, gravity along -z
+    dt = 0.005
+    t = np.arange((n_kf - 1) * rows + 1) * dt
+    p = np.stack([0.4 * t, 0.1 * np.sin(2 * t), 0.2 * t * t], -1)
+    v = np.gradient(p, dt, axis=0)
+    a = np.gradient(v, dt, axis=0)
+    meas = np.zeros(((n_kf - 1) * rows, 7), np.float32)
+    meas[:, 0] = dt
+    meas[:, 1:4] = a[:-1] + [0.0, 0.0, 9.81]           # R = I throughout
+    kf = np.arange(n_kf) * rows
+    X = rng.uniform(-4, 4, (n_pts, 3)) + [0, 0, 10.0]
+    fx, cx, cy, bf = 400.0, 320.0, 240.0, 40.0
+    Xc = X[None] - p[kf][:, None]
+    uv = np.stack([fx * Xc[..., 0] / Xc[..., 2] + cx,
+                   fx * Xc[..., 1] / Xc[..., 2] + cy], -1)
+    uv += rng.normal(0, 0.05, uv.shape)
+    ur = uv[..., 0] - bf / Xc[..., 2]
+    pt = np.tile(np.arange(n_pts), (n_kf, 1))
+    cam = np.repeat(np.arange(n_kf)[:, None], n_pts, 1)
+    p_w = p[kf][n_a:] + np.r_[np.zeros((1, 3)),
+                              rng.normal(0, 0.05, (W - 1, 3))]
+    v_w = v[kf][n_a:] + rng.normal(0, 0.1, (W, 3))
+    Xp = X + rng.normal(0, 0.05, X.shape)
+
+    def run(dev):
+        def T(x, dtype=f32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        sts = imu.integrate(
+            torch.zeros(6, device=dev),
+            T(meas.reshape(n_kf - 1, rows, 7)[n_a:]),
+            torch.ones(W - 1, rows, dtype=torch.bool, device=dev),
+            1e-3, 1e-2, 1e-6, 1e-5)
+        ones = torch.ones
+        return inertial_opt.vi_window_ba(
+            0, T([fx, fx, cx, cy, 0, 0, 0, 0]), bf,
+            torch.eye(3, device=dev).repeat(W, 1, 1), T(p_w), T(v_w),
+            ones(W, dtype=torch.bool, device=dev), sts,
+            ones(W - 1, dtype=torch.bool, device=dev),
+            torch.zeros(3, device=dev), torch.zeros(3, device=dev),
+            T([0.0, 0.0, -9.81]), T(Xp),
+            T(pt[n_a:].reshape(-1), torch.long),
+            T((cam[n_a:] - n_a).reshape(-1), torch.long),
+            T(uv[n_a:].reshape(-1, 2)), T(ur[n_a:].reshape(-1)),
+            ones(W * n_pts, device=dev),
+            ones(W * n_pts, dtype=torch.bool, device=dev),
+            torch.eye(3, device=dev).repeat(n_a, 1, 1), T(-p[kf][:n_a]),
+            T(cam[:n_a].reshape(-1), torch.long),
+            T(pt[:n_a].reshape(-1), torch.long), T(uv[:n_a].reshape(-1, 2)),
+            T(ur[:n_a].reshape(-1)), ones(n_a * n_pts, device=dev),
+            ones(n_a * n_pts, dtype=torch.bool, device=dev),
+            walk_info=torch.full((6,), 1e6, device=dev))
+    cpu, card = run("cpu"), run("cuda")
+    assert card.R_wb.is_cuda
+    eye = torch.eye(3)
+    assert float((card.R_wb.cpu() @ cpu.R_wb.transpose(-1, -2) - eye)
+                 .abs().max()) < 2e-3
+    for name, tol in (("p_wb", 2e-3), ("vels", 1e-2), ("mp_pos", 5e-3),
+                      ("g", 0.2), ("bg", 2e-3), ("ba", 2e-2)):
+        gap = float((getattr(card, name).cpu() - getattr(cpu, name))
+                    .abs().max())
+        assert gap < tol, (name, gap)
+    # and both pulled the window back to the truth
+    truth = torch.as_tensor(p[kf][n_a:], dtype=f32)
+    assert float((card.p_wb.cpu() - truth).abs().max()) < 0.05
+    assert float(lie.so3_log(card.R_wb.cpu()).abs().max()) < 5e-3

@@ -23,6 +23,12 @@ from ms_slam_tpu_torch.ops import orb as torb
 from ms_slam_tpu_torch.pipeline import frontend as tfe
 from ms_slam_tpu_torch.utils import synth
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 H, W, FX, BASELINE = 192, 256, 200.0, 0.15
 
 

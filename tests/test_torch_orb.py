@@ -26,6 +26,12 @@ from ms_slam_tpu.ops import orb as jorb
 from ms_slam_tpu_torch.ops import orb as torb
 from test_orb import mondrian
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 CFG_J = jorb.OrbConfig(n_features=512, n_levels=4)
 CFG_T = torb.OrbConfig(*CFG_J)
 

@@ -26,6 +26,12 @@ from ms_slam_tpu_torch.ops import lie as tlie
 from ms_slam_tpu_torch.ops import robust as trob
 from ms_slam_tpu_torch.ops import triangulate as ttri
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 RTOL, ATOL = 1e-5, 1e-6
 PIN = np.asarray([718.856, 718.856, 607.1928, 185.2157, 0, 0, 0, 0],
                  np.float32)

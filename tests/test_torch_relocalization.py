@@ -48,6 +48,12 @@ from ms_slam_tpu_torch.pipeline import mapping_ops as tmo
 from ms_slam_tpu_torch.pipeline import tracking_ops as tto
 from ms_slam_tpu_torch.utils import synth
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 PIN = np.asarray([300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0], np.float32)
 
 

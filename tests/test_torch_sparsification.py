@@ -36,6 +36,12 @@ from ms_slam_tpu_torch.pipeline import sparsification as tsp
 from ms_slam_tpu_torch.utils import synth
 from test_select import random_instance, reference_scale_instance
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 H, W, FX, BL = 240, 320, 260.0, 0.15
 
 

@@ -45,6 +45,12 @@ from ms_slam_tpu_torch.pipeline import mapping_ops as tmo
 from ms_slam_tpu_torch.pipeline import tracking_ops as tto
 from ms_slam_tpu_torch.utils import synth
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 H, W, FX, BASELINE = 240, 320, 260.0, 0.15
 CJ = jfe.Calib(model=0, params=(FX, FX, W / 2, H / 2), bf=FX * BASELINE,
                width=W, height=H, th_depth=BASELINE * 40, fps=10.0)

@@ -27,6 +27,12 @@ from ms_slam_tpu.utils import synth as jsynth
 from ms_slam_tpu_torch.ops import orb as torb
 from ms_slam_tpu_torch.utils import evaluate, synth
 
+torch.set_num_threads(1)       # one thread per test process: xdist workers
+try:                            # would otherwise fight over the cores
+    torch.set_num_interop_threads(1)
+except RuntimeError:
+    pass
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
