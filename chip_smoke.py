@@ -9,11 +9,13 @@ Phases (any failure exits non-zero; there is no CPU path):
   2. build: compiles the hand-written CUDA kernels from the sources in the
      checkout (ms_slam_tpu_torch/csrc) into ms_slam_tpu_torch/_build;
   3. kernel vs plain: the patch-gather kernel against its plain PyTorch
-     version at the main path's shapes, bit for bit; then the kernel's own
-     time (200 launches of its C entry point between two CUDA events, L2
-     warm; one event pair per launch after a 256 MiB write, L2 cold) beside
-     its bound (bytes over 3.35 TB/s), the plain version and the nearest
-     single PyTorch call;
+     version at the stereo main path's shapes, bit for bit; then the
+     kernel's own time (200 launches of its C entry point between two CUDA
+     events, L2 warm; one event pair per launch after a 256 MiB write, L2
+     cold) beside its bound (bytes over 3.35 TB/s), the plain version and
+     the nearest single PyTorch call; then the same check and times at the
+     monocular / RGB-D shape (one 384x5888 canvas, 2048 keypoints) and the
+     stereo-fisheye shape (two 512x2560 canvases, 2 x 1024 keypoints);
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -49,11 +51,25 @@ Phases (any failure exits non-zero; there is no CPU path):
      10 Hz, synth.make_imu at 200 Hz) with 8 blank frame pairs after
      inertial stage 2, then one direct _full_inertial_ba() (see
      phase_inertial for the bars and the cuts);
+  9. monocular at full width: System.track_monocular over 60 frames of
+     tests/test_mono_rgbd.py's scene, from the two-view initialization on
+     (phase_mono);
+ 10. RGB-D at full width: System.track_rgbd over 40 frames of the same
+     scene with rendered depth, then 10 frames in localization mode
+     (phase_rgbd);
+ 11. stereo fisheye at the TUM-VI geometry (two KB8 cameras, 512x512,
+     1024 features): the frontend's triangulated depths on frame 0 against
+     the render, then System.track_stereo over 40 frames of
+     tests/test_fisheye.py's scene (phase_fisheye);
+ 12. mono-inertial at full width: System.track_monocular_imu over
+     tests/test_inertial_system.py's 70-frame excited arc to a metric map
+     (phase_mono_inertial);
   then a JSON line of per-kernel results and the final JSON status line.
+Every phase from 4 on checks the kernel's launches in its run: one a frame.
 
 Options, for work on one part: --kernel-only stops after phase 3,
---loop-only runs phases 1-3 and 7, --imu-only phases 1-3 and 8; none of
-them prints a status line.
+--loop-only runs phases 1-3 and 7, --imu-only phases 1-3 and 8,
+--sensors-only phases 1-3 and 9-12; none of them prints a status line.
 --parent DIR also builds the patch_gather.cu of another checkout of this
 repository (same C interface) and times the two kernels in turns in
 phase 3: parent, this, this, parent.
@@ -81,12 +97,17 @@ def _check(cond: bool, msg: str):
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def phase_device():
-    _check(torch.cuda.is_available(), "no CUDA device (this script needs one)")
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(f"# nvidia-smi: {smi.stdout.strip().splitlines()[0]}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    _check(torch.cuda.is_available(), "no CUDA device (this script needs one)")
+    print(f"# nvidia-smi: {_card()}")
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -155,14 +176,10 @@ def _cold_ms(fn, flush, n=50, warmup=3):
     return float(np.median([a.elapsed_time(b) for a, b in pairs[warmup:]]))
 
 
-def _kernel_inputs():
-    """Patch-gather inputs at the main path's shapes (B=2, H=384, Wc=5888,
-    2048 keypoints per image), with centres beyond all four clip edges."""
-    from ms_slam_tpu_torch.ops import orb
-    B, Hc, n = 2, H, 2048
-    _, Wc, _ = orb.canvas_layout(H, W, orb.OrbConfig(n_features=2048,
-                                                     n_levels=8))
-    _check(Wc == 5888, f"canvas width {Wc} != 5888")
+def _kernel_inputs(B=2, Hc=H, Wc=5888, n=2048):
+    """Patch-gather inputs (B canvases of Hc x Wc, n keypoints per image),
+    with centres beyond all four clip edges. The defaults are the stereo
+    main path's shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     canvas = torch.rand((B, Hc, Wc), generator=g, device=dev) * 255.0
@@ -219,6 +236,9 @@ def phase_kernel(parent_dir=None):
     point, output allocated once) with the L2 cache warm and cold, beside
     its bound, the plain version and the nearest single PyTorch call."""
     from ms_slam_tpu_torch.ops import orb
+    _, Wc, _ = orb.canvas_layout(H, W, orb.OrbConfig(n_features=2048,
+                                                     n_levels=8))
+    _check(Wc == 5888, f"canvas width {Wc} != 5888")
     canvas, bi, ys, xs = _kernel_inputs()
     B, Hc, Wc = canvas.shape
     n = bi.shape[0]
@@ -261,17 +281,7 @@ def phase_kernel(parent_dir=None):
         canvas, bi, ys, xs))
     plain_ms = _run_ms(lambda: orb.extract_patches_canvas_plain(
         canvas, bi, ys, xs), n=50, warmup=5)
-    # the nearest single PyTorch call: the plain version's last step alone,
-    # on an (n, 2025) int64 index built beforehand (66 MB the kernel never
-    # reads); the port does not call it
-    R = orb.EXTRACT_R
-    base = ((bi.long().clamp(0, B - 1) * Hc + ys.long().clamp(R, Hc - R - 1)
-             - R) * Wc + xs.long().clamp(R, Wc - R - 1) - R)
-    ar = torch.arange(2 * R + 1, device=canvas.device)
-    idx = base[:, None] + (ar[:, None] * Wc + ar[None, :]).reshape(1, -1)
-    flat = canvas.reshape(-1)
-    _check(torch.equal(flat[idx].view(n, 45, 45), ref), "library call")
-    library_ms = _run_ms(lambda: flat[idx], n=50, warmup=5)
+    library_ms = _library_ms(canvas, bi, ys, xs, ref, "main path")
     print(f"# patch_gather {B}x{Hc}x{Wc}, {n // B} kp/img: bit-exact vs "
           f"plain. Bound {bound_ms:.4f} ms ({n_bytes} bytes at 3.35 TB/s). "
           f"Kernel alone, 200 launches between two events (L2 warm), median "
@@ -293,11 +303,77 @@ def phase_kernel(parent_dir=None):
           f"(host gap inside the span), median of 50: {wrapper_ms:.4f} ms; "
           f"plain version {plain_ms:.4f} ms; nearest library call "
           f"(canvas.reshape(-1)[idx], index prebuilt) {library_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
+    shapes = [_kernel_at_shape(lib, name, *shape)
+              for name, shape in SENSOR_KERNEL_SHAPES]
+    return {"max_abs_err": max([err] + [x["max_abs_err"] for x in shapes]),
+            "ms": ms, "ms_cold": ms_cold,
             "ms_wrapper_call": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "share_of_bound": bound_ms / ms,
-            "share_of_bound_cold": bound_ms / ms_cold}
+            "share_of_bound_cold": bound_ms / ms_cold,
+            "other_shapes": shapes}
+
+
+def _library_ms(canvas, bi, ys, xs, ref, name):
+    """Time of the nearest single PyTorch call: the plain version's last
+    step alone, `canvas.reshape(-1)[idx]` on an (n, 2025) int64 index built
+    beforehand (66 MB at the main path's shape, which the kernel never
+    reads); the port does not call it."""
+    from ms_slam_tpu_torch.ops import orb
+    B, Hc, Wc = canvas.shape
+    R = orb.EXTRACT_R
+    base = ((bi.long().clamp(0, B - 1) * Hc + ys.long().clamp(R, Hc - R - 1)
+             - R) * Wc + xs.long().clamp(R, Wc - R - 1) - R)
+    ar = torch.arange(2 * R + 1, device=canvas.device)
+    idx = base[:, None] + (ar[:, None] * Wc + ar[None, :]).reshape(1, -1)
+    flat = canvas.reshape(-1)
+    _check(torch.equal(flat[idx].view(-1, 45, 45), ref),
+           f"{name}: library call")
+    return _run_ms(lambda: flat[idx], n=50, warmup=5)
+
+
+# the kernel's shapes on the monocular / RGB-D path (one 1248x384 image,
+# 2048 keypoints) and on the stereo-fisheye path (two 512x512 images, 1024
+# keypoints each): (B, canvas height, canvas width, keypoints per image)
+SENSOR_KERNEL_SHAPES = (("mono_rgbd", (1, 384, 5888, 2048)),
+                        ("fisheye", (2, 512, 2560, 1024)))
+
+
+def _kernel_at_shape(lib, name, B, Hc, Wc, n):
+    """The kernel at another shape of the main paths: bit for bit against
+    the plain version through the wrapper, then its own time (L2 warm and
+    cold) beside its bound and the plain version."""
+    from ms_slam_tpu_torch.ops import orb
+    canvas, bi, ys, xs = _kernel_inputs(B, Hc, Wc, n)
+    out = orb.extract_patches_canvas(canvas, bi, ys, xs)
+    ref = orb.extract_patches_canvas_plain(canvas, bi, ys, xs)
+    torch.cuda.synchronize()
+    _check(out.shape == ref.shape == (B * n, 45, 45), f"{name}: patch shape")
+    err = float((out - ref).abs().max())
+    _check(torch.equal(out, ref), f"{name}: kernel != plain (max abs err "
+           f"{err})")
+    n_bytes = 4 * (out.numel() + canvas.numel() + 3 * bi.numel())
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    buf = torch.empty_like(out)
+    fn = _c_launch(lib.msslam_patch_gather_f32, canvas, bi, ys, xs, buf)
+    fn()
+    torch.cuda.synchronize()
+    _check(torch.equal(buf, ref), f"{name}: kernel != plain, C entry")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    ms, ms_cold = _run_ms(fn), _cold_ms(fn, flush)
+    plain_ms = _run_ms(lambda: orb.extract_patches_canvas_plain(
+        canvas, bi, ys, xs), n=50, warmup=5)
+    library_ms = _library_ms(canvas, bi, ys, xs, ref, name)
+    print(f"# patch_gather {B}x{Hc}x{Wc}, {n} kp/img ({name}): bit-exact vs "
+          f"plain. Bound {bound_ms:.5f} ms ({n_bytes} bytes at 3.35 TB/s). "
+          f"Kernel alone, L2 warm {ms:.4f} ms = {100 * bound_ms / ms:.1f}% "
+          f"of the bound; L2 cold {ms_cold:.4f} ms = "
+          f"{100 * bound_ms / ms_cold:.1f}%; plain version {plain_ms:.4f} "
+          f"ms; nearest library call {library_ms:.4f} ms")
+    return {"shape": name, "canvas": [B, Hc, Wc], "keypoints": B * n,
+            "max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": n_bytes}
 
 
 def _timed(module, name, key, acc):
@@ -314,9 +390,25 @@ def _timed(module, name, key, acc):
     setattr(module, name, wrapper)
 
 
-def _render(world, K, T):
-    return tuple(np.clip(im, 0, 255).astype(np.uint8)
-                 for im in world.render_stereo(K, T, BASELINE, H, W))
+def _u8(im):
+    return np.clip(im, 0, 255).astype(np.uint8)
+
+
+def _render(world, K, T, kind="stereo"):
+    """One frame's images: a rectified stereo pair at phase 4's rig, a
+    monocular image, an (image, depth in metres) RGB-D pair, or an
+    unrectified KB8 pair at the TUM-VI rig of phase 11."""
+    if kind == "stereo":
+        return tuple(_u8(im) for im in world.render_stereo(K, T, BASELINE,
+                                                           H, W))
+    if kind == "mono":
+        return (_u8(world.render(K, T, H, W)),)
+    if kind == "rgbd":
+        img, depth = world.render_rgbd(K, T, H, W)
+        return _u8(img), depth.astype(np.float32)
+    return tuple(_u8(im) for im in world.render_fisheye_stereo(
+        TUMVI_KB8_1, T, TUMVI_BASELINE, TUMVI_H, TUMVI_W,
+        kb8_params2=TUMVI_KB8_2))
 
 
 def _make_world(name, kwargs):
@@ -324,14 +416,14 @@ def _make_world(name, kwargs):
     return getattr(synth, name)(np.random.default_rng(0), **kwargs)
 
 
-def _render_chunk(name, kwargs, K, poses):
+def _render_chunk(name, kwargs, K, poses, kind):
     world = _make_world(name, kwargs)
-    return [_render(world, K, T) for T in poses]
+    return [_render(world, K, T, kind) for T in poses]
 
 
-def _render_all(name, kwargs, K, poses, n_workers=6):
-    """Render every pose's stereo pair in worker processes (numpy ray
-    casting, ~1 s a frame on one core); each worker builds the same world
+def _render_all(name, kwargs, K, poses, n_workers=6, kind="stereo"):
+    """Render every pose's frame in worker processes (numpy ray casting,
+    ~1 s a stereo frame on one core); each worker builds the same world
     from the seed. The pool is gone when this returns."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -339,7 +431,8 @@ def _render_all(name, kwargs, K, poses, n_workers=6):
     with ProcessPoolExecutor(
             n_workers, mp_context=multiprocessing.get_context("spawn")) as ex:
         parts = list(ex.map(_render_chunk, [name] * n_workers,
-                            [kwargs] * n_workers, [K] * n_workers, chunks))
+                            [kwargs] * n_workers, [K] * n_workers, chunks,
+                            [kind] * n_workers))
     frames = [None] * len(poses)
     for w, part in enumerate(parts):
         frames[w::n_workers] = part
@@ -809,10 +902,7 @@ def phase_inertial():
     from ms_slam_tpu_torch.pipeline.system import System, SystemConfig
     from ms_slam_tpu_torch.utils import evaluate, synth
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = _card()
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
     calib = Calib(model=0, params=(FX, FX, W / 2, H / 2), bf=FX * BASELINE,
                   width=W, height=H, th_depth=BASELINE * 40, fps=10.0)
@@ -1077,6 +1167,397 @@ def phase_inertial():
     return launches
 
 
+# configs/TUM-VI-Fisheye.yaml: Camera1 and Camera2 (fx, fy, cx, cy, k1-k4),
+# 512x512, and the length of Stereo.T_c1_c2's translation
+TUMVI_KB8_1 = (190.97847715128717, 190.9733070521226, 254.93170605935475,
+               256.8974428996504, 0.0034823894022493434,
+               0.0007150348452162257, -0.0020532361418706202,
+               0.00020293673591811182)
+TUMVI_KB8_2 = (190.44236969414825, 190.4344384721956, 252.59949716835982,
+               254.91723064636983, 0.0034003170790442797,
+               0.001766278153469831, -0.00266312569781606,
+               0.0003299517423931039)
+TUMVI_BASELINE = float(np.linalg.norm([0.101063, -0.001946, 0.000931]))
+TUMVI_H = TUMVI_W = 512
+
+MONO_FRAMES = 60
+RGBD_FRAMES, RGBD_LOC_FRAMES = 40, 10
+FISHEYE_FRAMES = 40
+MONO_IMU_FRAMES = 70
+
+
+def _sensor_cfg(calib, n_feat=2048, **kw):
+    """Phase 4's widths and map capacities around another calibration, with
+    the reference tests' keyframe and BA settings (max_frames_between_kf=8,
+    ba_iters=8 unless given)."""
+    from ms_slam_tpu_torch.models.map_state import MapConfig
+    from ms_slam_tpu_torch.ops.orb import OrbConfig
+    from ms_slam_tpu_torch.pipeline.system import SystemConfig
+    kw.setdefault("max_frames_between_kf", 8)
+    return SystemConfig(
+        calib=calib, orb=OrbConfig(n_features=n_feat, n_levels=8),
+        map=MapConfig(max_kf=128, max_mp=32768, n_feat=n_feat,
+                      local_mp_cap=4096, window_kf=6), **kw)
+
+
+def _pinhole(bf=0.0, th_depth=0.0):
+    from ms_slam_tpu_torch.pipeline.frontend import Calib
+    return Calib(model=0, params=(FX, FX, W / 2, H / 2), bf=bf, width=W,
+                 height=H, th_depth=th_depth, fps=10.0)
+
+
+def _drive(slam, frames, step, stage_keys, stage, label):
+    """Run `step(slam, i, frame)` over the frames with the kernel's count
+    set to 0 just before and read just after (the pipeline flushed); print
+    the rate, the frame wall times and the stages' p50."""
+    from ms_slam_tpu_torch.ops import orb
+    torch.cuda.reset_peak_memory_stats()
+    orb.patch_gather_launches = 0
+    frame_s = []
+    for i, fr in enumerate(frames):
+        t0 = time.perf_counter()
+        step(slam, i, fr)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    slam._flush_pipeline()
+    torch.cuda.synchronize()
+    launches = orb.patch_gather_launches
+    fs = np.asarray(frame_s)
+    print(f"# {label}: {len(fs)} frames; frames/s over frames 5-"
+          f"{len(fs) - 1}: {(len(fs) - 5) / fs[5:].sum():.3f}; frame wall "
+          f"p50 {np.percentile(fs, 50) * 1e3:.2f} ms, p95 "
+          f"{np.percentile(fs, 95) * 1e3:.2f} ms, max {fs.max() * 1e3:.2f} "
+          f"ms; keyframes {slam.keyframes_in_map()}, map points "
+          f"{slam.map_points_in_map()}; kernel launches {launches}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB")
+    for k in stage_keys:
+        v = np.asarray(stage.get(k, [0.0]))
+        print(f"# {label} stage {k:<16} n={len(stage.get(k, []))} p50 "
+              f"{np.percentile(v, 50) * 1e3:.2f} ms max "
+              f"{v.max() * 1e3:.2f} ms (host clock between device syncs)")
+    return launches
+
+
+def _ate(rows, poses, with_scale):
+    """(ATE, path length, Horn scale) of a System's rows (timestamp, Twc) at
+    10 Hz against the poses."""
+    from ms_slam_tpu_torch.utils import evaluate
+    est = np.stack([Twc[:3, 3] for _, Twc in rows])
+    gt = np.stack([poses[int(round(ts * 10))][:3, 3] for ts, _ in rows])
+    _check(np.isfinite(est).all(), "a pose is not finite")
+    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+    scale = evaluate.horn_align(est.T, gt.T, True)[2]
+    return evaluate.ate_rmse(est, gt, with_scale=with_scale), path, scale
+
+
+class _time_stages:
+    """`with _time_stages(stage, [(module, name, key), ...]):` times each
+    call of those functions between device syncs into stage[key], and puts
+    the functions back on exit."""
+
+    def __init__(self, stage, names):
+        self.stage, self.names = stage, names
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in self.names]
+        for mod, name, key in self.names:
+            _timed(mod, name, key, self.stage)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_mono():
+    """Monocular SLAM at full width (phase 9): tests/test_mono_rgbd.py's
+    mono scene (PlaneWorld(z_wall=14, y_floor=2), the "arc" path) over
+    MONO_FRAMES = 60 frames instead of 30 at 1248x384 with 2048 features
+    instead of 320x240 and 512, through System.track_monocular with bf = 0
+    and th_depth = 0 (tests/test_twoview.py's monocular calibration; the
+    mono test's own build() carries a stereo bf that a monocular frame never
+    uses). Held: an initialization (its frame printed), state OK at the end,
+    at least 2 keyframes, the scale-free ATE under 12% of the path
+    (test_mono_rgbd.py's bar) and one kernel launch a frame. The two-view
+    reconstruction's calls are timed (256 batched SVDs of 8x9 and of 16x9
+    matrices a call, through cuSOLVER)."""
+    from ms_slam_tpu_torch.pipeline import system as system_mod
+    from ms_slam_tpu_torch.pipeline.system import System
+    from ms_slam_tpu_torch.utils import synth
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    poses = synth.make_trajectory(MONO_FRAMES, "arc")
+    t0 = time.perf_counter()
+    frames = _render_all("PlaneWorld", dict(z_wall=14.0, y_floor=2.0), K,
+                         poses, kind="mono")
+    print(f"# mono ({_card()}): rendered {MONO_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    slam = System(_sensor_cfg(_pinhole()), device="cuda")
+    stage = {}
+    with _time_stages(stage, [
+            (system_mod, "process_mono", "frontend"),
+            (system_mod.to, "track_full", "track"),
+            (system_mod.mo, "keyframe_step", "keyframe_step"),
+            (system_mod.mo, "mapping_step", "mapping_step"),
+            (system_mod.twoview, "reconstruct", "reconstruct")]):
+        launches = _drive(
+            slam, frames, lambda s, i, fr: s.track_monocular(fr[0], 0.1 * i),
+            ("frontend", "track", "keyframe_step", "mapping_step",
+             "reconstruct"), stage, "mono")
+    init = next((e.frame_id for e in slam.trajectory if not e.lost), None)
+    rec = ", ".join(f"{v * 1e3:.1f}" for v in stage.get("reconstruct", []))
+    print(f"# mono: initialized at frame {init}; twoview.reconstruct calls "
+          f"(ms, synchronised): {rec}")
+    _check(init is not None, "the monocular map was never initialized")
+    _check(slam.state == "OK", f"final state {slam.state}")
+    _check(slam.keyframes_in_map() >= 2, "fewer than 2 keyframes")
+    rows = slam.poses_wc()
+    ate, path, scale = _ate(rows, poses, with_scale=True)
+    print(f"# mono: {len(rows)} frames saved; scale-free ATE {ate:.4f} m on "
+          f"a {path:.3f} m path ({100 * ate / path:.3f}%, bar 12%); Horn "
+          f"scale of the map {scale:.4f} (arbitrary in monocular)")
+    _check(ate < 0.12 * path, "scale-free ATE above 12%")
+    _check(launches == MONO_FRAMES,
+           f"patch_gather launched {launches} times for {MONO_FRAMES} frames")
+    return launches
+
+
+def phase_rgbd():
+    """RGB-D SLAM at full width (phase 10): tests/test_mono_rgbd.py's RGB-D
+    scene (PlaneWorld(z_wall=14, y_floor=2), the "arc" path, depth from
+    render_rgbd) at 1248x384 with 2048 features and phase 4's virtual
+    baseline (bf = fx * 0.537, th_depth = 40 baselines) through
+    System.track_rgbd: RGBD_FRAMES = 40 frames mapped, then
+    activate_localization_mode() for RGBD_LOC_FRAMES = 10 more frames of the
+    same path (make_trajectory(50, "arc")). Held: every frame tracked, the
+    ATE over all 50 frames under 2% of the path (test_mono_rgbd.py's bar),
+    no keyframe and no map point created or removed in the localization
+    leg, state OK after it, and one kernel launch a frame."""
+    from ms_slam_tpu_torch.pipeline import system as system_mod
+    from ms_slam_tpu_torch.pipeline.system import System
+    from ms_slam_tpu_torch.utils import synth
+    n = RGBD_FRAMES + RGBD_LOC_FRAMES
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    poses = synth.make_trajectory(n, "arc")
+    t0 = time.perf_counter()
+    frames = _render_all("PlaneWorld", dict(z_wall=14.0, y_floor=2.0), K,
+                         poses, kind="rgbd")
+    print(f"# rgbd ({_card()}): rendered {n} frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = _sensor_cfg(_pinhole(FX * BASELINE, BASELINE * 40),
+                      min_init_depth_points=300)
+    slam = System(cfg, device="cuda")
+    stage = {}
+    seen = {}
+
+    def step(s, i, fr):
+        if i == RGBD_FRAMES:
+            s._flush_pipeline()
+            seen["before"] = (s.kf_ord, s.map_points_in_map())
+            s.activate_localization_mode()
+        s.track_rgbd(fr[0], fr[1], 0.1 * i)
+    with _time_stages(stage, [
+            (system_mod, "process_rgbd", "frontend"),
+            (system_mod.to, "track_full", "track"),
+            (system_mod.mo, "keyframe_step", "keyframe_step")]):
+        launches = _drive(slam, frames, step,
+                          ("frontend", "track", "keyframe_step"), stage,
+                          "rgbd")
+    after = (slam.kf_ord, slam.map_points_in_map())
+    slam.deactivate_localization_mode()
+    print(f"# rgbd: keyframes created, map points before the localization "
+          f"leg {seen['before']}, after it {after}; state {slam.state}")
+    _check(slam.state == "OK", f"final state {slam.state}")
+    _check(not any(e.lost for e in slam.trajectory), "a frame was lost")
+    _check(after == seen["before"], "the localization leg changed the map")
+    rows = slam.poses_wc()
+    _check(len(rows) == n, f"{len(rows)} of {n} frames have a pose")
+    ate, path, _ = _ate(rows, poses, with_scale=False)
+    print(f"# rgbd: ATE {ate:.4f} m on a {path:.3f} m path "
+          f"({100 * ate / path:.3f}%, bar 2%)")
+    _check(ate < 0.02 * path, "ATE above 2%")
+    _check(launches == n, f"patch_gather launched {launches} times for {n} "
+           "frames")
+    return launches
+
+
+def _fisheye_calib():
+    from ms_slam_tpu_torch.pipeline.frontend import Calib
+    b = TUMVI_BASELINE
+    return Calib(model=1, params=TUMVI_KB8_1, bf=b * TUMVI_KB8_1[0],
+                 width=TUMVI_W, height=TUMVI_H, th_depth=b * 40.0, fps=10.0,
+                 params2=TUMVI_KB8_2,
+                 T_rl=(1.0, 0.0, 0.0, -b, 0.0, 1.0, 0.0, 0.0,
+                       0.0, 0.0, 1.0, 0.0),
+                 lapping=(0, TUMVI_W - 1, 0, TUMVI_W - 1))
+
+
+def phase_fisheye():
+    """Stereo-fisheye SLAM at the TUM-VI geometry (phase 11): two KB8
+    cameras with configs/TUM-VI-Fisheye.yaml's intrinsics at 512x512, 1024
+    features, 8 levels, bf and th_depth derived from the length of its
+    Stereo.T_c1_c2 translation (0.1011 m) as its config loader does.
+    Cuts: the rig is rendered and calibrated as a pure x-baseline of that
+    length (T_rl = [I | (-0.1011, 0, 0)]: synth.render_fisheye_stereo
+    draws no other), so the yaml's ~0.09 degree rotation and its y, z
+    offsets of 2 and 1 mm are dropped; 10 Hz frames instead of 20 Hz. Scene:
+    tests/test_fisheye.py's (BoxWorld(half=6), the "arc" path) over
+    FISHEYE_FRAMES = 40 frames instead of 25. Held: on frame 0 the
+    frontend's triangulated depths against the rendered geometry, over more
+    than 100 matches, with test_fisheye.py's bars expressed as disparity
+    errors fx * b * |1/z - 1/z_true| in pixels of each keypoint's pyramid
+    level (its 7% median and 15% on 75% of the matches are 0.7 and 1.5 px
+    at its 10 px disparity at 6 m; this rig sees 3.2 px there, so a
+    relative bar would hold it to a third of the test's pixel error, and 8
+    levels instead of its 4 put a third of the keypoints at 1.7-3.6 times
+    coarser pixels); then state OK, at least 2 keyframes, every frame
+    tracked, the ATE under 3% of the path (test_fisheye.py's bar) and one
+    kernel launch a frame."""
+    from ms_slam_tpu_torch.ops.orb import OrbConfig
+    from ms_slam_tpu_torch.pipeline import frontend
+    from ms_slam_tpu_torch.pipeline import system as system_mod
+    from ms_slam_tpu_torch.pipeline.system import System
+    from ms_slam_tpu_torch.utils import synth
+    poses = synth.make_trajectory(FISHEYE_FRAMES, "arc")
+    t0 = time.perf_counter()
+    frames = _render_all("BoxWorld", dict(half=6.0), None, poses,
+                         kind="fisheye")
+    print(f"# fisheye ({_card()}): rendered {FISHEYE_FRAMES} frame pairs "
+          f"of {TUMVI_W}x{TUMVI_H} in {time.perf_counter() - t0:.1f} s")
+    calib = _fisheye_calib()
+    orb_cfg = OrbConfig(n_features=1024, n_levels=8)
+    fd = frontend.process_stereo_fisheye(
+        torch.from_numpy(np.stack(frames[0])).cuda(), calib, orb_cfg)
+    depth, xy = fd.depth.cpu().numpy(), fd.feats.xy.cpu().numpy()
+    world = _make_world("BoxWorld", dict(half=6.0))
+    T0 = poses[0]
+    d = synth.kb8_rays(TUMVI_KB8_1, TUMVI_H, TUMVI_W) @ T0[:3, :3].T
+    gt_depth = np.full((TUMVI_H, TUMVI_W), np.inf)
+    for ax, val, _, _ in world.iter_planes():
+        da = d[..., ax]
+        da_s = np.where(np.abs(da) > 1e-9, da, 1e-9)
+        t = np.where(np.abs(da) > 1e-9, (val - T0[ax, 3]) / da_s, -1)
+        gt_depth = np.where((t > 0.1) & (t < gt_depth), t, gt_depth)
+    ok = depth > 0
+    ui = np.clip(np.round(xy[ok, 0]).astype(int), 0, TUMVI_W - 1)
+    vi = np.clip(np.round(xy[ok, 1]).astype(int), 0, TUMVI_H - 1)
+    gt = gt_depth[vi, ui]
+    rel = np.abs(depth[ok] - gt) / gt
+    # the same error as a disparity error, fx * b * |1/z - 1/z_true|, in
+    # pixels of each keypoint's own pyramid level
+    level_px = orb_cfg.scale_factor ** fd.feats.octave.cpu().numpy()[ok]
+    disp = calib.bf * np.abs(1.0 / depth[ok] - 1.0 / gt) / level_px
+    print(f"# fisheye frame 0: {int(ok.sum())} triangulated matches; "
+          f"disparity error against the render, in pixels of the keypoint's "
+          f"level: median {np.median(disp):.4f} (bar 0.7), share under 1.5 "
+          f"{(disp < 1.5).mean():.4f} (bar 0.75); relative depth error: "
+          f"median {np.median(rel):.4f}, share under 15% "
+          f"{(rel < 0.15).mean():.4f}")
+    _check(ok.sum() > 100 and np.median(disp) < 0.7
+           and (disp < 1.5).mean() > 0.75, "fisheye triangulated depths")
+
+    slam = System(_sensor_cfg(calib, n_feat=1024, min_init_depth_points=100),
+                  device="cuda")
+    stage = {}
+    with _time_stages(stage, [
+            (system_mod, "process_stereo_fisheye", "frontend"),
+            (system_mod.to, "track_full", "track"),
+            (system_mod.mo, "keyframe_step", "keyframe_step")]):
+        launches = _drive(
+            slam, frames,
+            lambda s, i, fr: s.track_stereo(fr[0], fr[1], 0.1 * i),
+            ("frontend", "track", "keyframe_step"), stage, "fisheye")
+    _check(slam.state == "OK", f"final state {slam.state}")
+    _check(slam.keyframes_in_map() >= 2, "fewer than 2 keyframes")
+    rows = slam.poses_wc()
+    _check(len(rows) == FISHEYE_FRAMES, f"{len(rows)} of {FISHEYE_FRAMES} "
+           "frames have a pose")
+    ate, path, _ = _ate(rows, poses, with_scale=False)
+    print(f"# fisheye: ATE {ate:.4f} m on a {path:.3f} m path "
+          f"({100 * ate / path:.3f}%, bar 3%)")
+    _check(ate < 0.03 * path, "ATE above 3%")
+    _check(launches == FISHEYE_FRAMES, f"patch_gather launched {launches} "
+           f"times for {FISHEYE_FRAMES} frames")
+    return launches
+
+
+def phase_mono_inertial():
+    """Mono-inertial SLAM at full width (phase 12):
+    tests/test_inertial_system.py's mono-inertial case as it stands
+    (PlaneWorld(z_wall=14, y_floor=2), 70 frames of the "arc_excited" path
+    at 10 Hz, synth.make_imu at 200 Hz, bf = 0, max_frames_between_kf=3,
+    use_imu=True, imu_init_kfs=6, imu_init_time=1.0) at 1248x384 with 2048
+    features instead of 320x240 and 512. Held (the test's bars):
+    initialized; gravity within 0.6 of 9.81 m/s^2 with g_y / |g| > 0.9; the
+    Horn scale between the trajectory and the metric ground truth within
+    0.2 of 1 over the whole run and over its second half; the scale-free
+    ATE under 12% of the path; and one kernel launch a frame."""
+    from ms_slam_tpu_torch.pipeline import system as system_mod
+    from ms_slam_tpu_torch.pipeline.system import System
+    from ms_slam_tpu_torch.utils import synth
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    poses = synth.make_trajectory(MONO_IMU_FRAMES, "arc_excited")
+    imu = synth.make_imu(poses, 0.1, imu_rate=200)
+    t0 = time.perf_counter()
+    frames = _render_all("PlaneWorld", dict(z_wall=14.0, y_floor=2.0), K,
+                         poses, kind="mono")
+    print(f"# mono-inertial ({_card()}): rendered {MONO_IMU_FRAMES} frames "
+          f"in {time.perf_counter() - t0:.1f} s")
+    cfg = _sensor_cfg(_pinhole(), max_frames_between_kf=3, use_imu=True,
+                      imu_init_kfs=6, imu_init_time=1.0)
+    slam = System(cfg, device="cuda")
+    stage = {}
+    scales, init_at = [], []
+    apply = slam._apply_map_scale
+
+    def recorded(s):
+        scales.append((slam.frame_id, float(s)))
+        return apply(s)
+    slam._apply_map_scale = recorded
+
+    def step(s, i, fr):
+        if i == 0:
+            s.track_monocular(fr[0], 0.0)
+        else:
+            s.track_monocular_imu(fr[0], 0.1 * i, imu[i - 1])
+        if s.imu_initialized and not init_at:
+            init_at.append(i)
+    with _time_stages(stage, [
+            (system_mod, "process_mono", "frontend"),
+            (system_mod.to, "track_full", "track"),
+            (system_mod.to, "track_full_imu", "track_full_imu"),
+            (system_mod.mo, "keyframe_step", "keyframe_step")]):
+        launches = _drive(slam, frames, step,
+                          ("frontend", "track", "track_full_imu",
+                           "keyframe_step"), stage, "mono-inertial")
+    g = np.asarray(slam.gravity if slam.gravity is not None
+                   else np.zeros(3), np.float64)
+    rows = slam.poses_wc()
+    ate, path, s_all = _ate(rows, poses, with_scale=True)
+    half = len(rows) // 2
+    _, _, s_half = _ate(rows[half:], poses, with_scale=True)
+    mono_init = next((e.frame_id for e in slam.trajectory if not e.lost),
+                     None)
+    print(f"# mono-inertial: monocular map at frame {mono_init}, IMU "
+          f"initialized at frame {init_at[0] if init_at else None}, stage "
+          f"{slam._imu_stage}; scales applied (frame, s) "
+          f"{[(f, round(v, 4)) for f, v in scales]}; gravity "
+          f"{g.round(4).tolist()} (norm {np.linalg.norm(g):.4f}); Horn "
+          f"scale {s_all:.4f} over {len(rows)} frames, {s_half:.4f} over the "
+          f"second half (bars 1 +- 0.2); scale-free ATE {ate:.4f} m on "
+          f"{path:.3f} m ({100 * ate / path:.3f}%, bar 12%)")
+    _check(slam.state == "OK", f"final state {slam.state}")
+    _check(slam.imu_initialized, "the IMU was never initialized")
+    n = float(np.linalg.norm(g))
+    _check(abs(n - 9.81) < 0.6 and g[1] / n > 0.9, f"gravity {g}")
+    _check(abs(s_all - 1.0) < 0.2 and abs(s_half - 1.0) < 0.2,
+           f"Horn scale {s_all}, second half {s_half}")
+    _check(ate < 0.12 * path, "scale-free ATE above 12%")
+    _check(launches == MONO_IMU_FRAMES, f"patch_gather launched {launches} "
+           f"times for {MONO_IMU_FRAMES} frames")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-only", action="store_true",
@@ -1085,6 +1566,9 @@ def main():
                     help="phases 1-3 and 7 only (no status line is printed)")
     ap.add_argument("--imu-only", action="store_true",
                     help="phases 1-3 and 8 only (no status line is printed)")
+    ap.add_argument("--sensors-only", action="store_true",
+                    help="phases 1-3 and 9-12 only (no status line is "
+                    "printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
                     "builds its patch_gather.cu and times the two kernels "
@@ -1094,16 +1578,25 @@ def main():
     phase_build()
     kern = phase_kernel(args.parent)
     by_phase = {}
-    part = args.kernel_only or args.loop_only or args.imu_only
+    only = [k for k in ("kernel_only", "loop_only", "imu_only",
+                        "sensors_only") if getattr(args, k)]
+    part = bool(only)
+    t_start = time.perf_counter()
     if not part:
         run = phase_main_path()
         by_phase["main_path"] = run["launches"]
         by_phase["relocalization"] = phase_relocalize(run)
         phase_ties_and_selector(run["window"])
-    if not (args.kernel_only or args.imu_only):
+    if not part or only == ["loop_only"]:
         by_phase["loop_closing"] = phase_loop_closing()
-    if not (args.kernel_only or args.loop_only):
+    if not part or only == ["imu_only"]:
         by_phase["inertial"] = phase_inertial()
+    if not part or only == ["sensors_only"]:
+        by_phase["mono"] = phase_mono()
+        by_phase["rgbd"] = phase_rgbd()
+        by_phase["fisheye"] = phase_fisheye()
+        by_phase["mono_inertial"] = phase_mono_inertial()
+    print(f"# phases 4-12 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "patch_gather", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",

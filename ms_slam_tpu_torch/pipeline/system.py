@@ -1,10 +1,15 @@
-"""System facade: the public API and the pipeline schedule (stereo and
-stereo-inertial).
+"""System facade: the public API and the pipeline schedule for every
+sensor set-up of the reference: stereo (rectified pinhole or unrectified
+Kannala-Brandt8 fisheye), RGB-D, monocular, stereo-inertial and
+mono-inertial.
 
-Port of the stereo subset of `ms_slam_tpu/pipeline/system.py`:
-`track_stereo` runs the frontend and dispatches the tracking step; the
+Port of `ms_slam_tpu/pipeline/system.py`: `track_stereo`, `track_rgbd` and
+`track_monocular` run their frontend and dispatch the tracking step; the
 previous in-flight frame completes behind it (pipeline depth 2, as the
-reference), so host keyframe decisions lag the same frames as there.
+reference), so host keyframe decisions lag the same frames as there. A
+monocular System first records frames as lost until two views with enough
+mutual matches give a two-view reconstruction (`ops/twoview.py`), which
+becomes the first two keyframes at median depth 1.
 
 With `sparsify=True` the sliding-window sparsifier runs after each
 keyframe's local-mapping window and the keyframe database (KFDB) holds a
@@ -19,19 +24,24 @@ place recognition against the sparsified keyframes, confirmation over three
 keyframes, then the loop correction or the Atlas map merge.
 
 With `use_imu=True` frames after the first come through
-`track_stereo_imu` with the IMU rows since the previous frame. The IMU is
+`track_stereo_imu` (or `track_monocular_imu`) with the IMU rows since the
+previous frame. The IMU is
 initialized in stages from the keyframe chain (`_try_imu_init`); from then
 on every frame is predicted from the IMU and refined jointly in pose,
 velocity and bias (`tracking_ops.track_full_imu`), every keyframe runs the
 visual-inertial window BA on top of the visual one
 (`_inertial_window_ba`), a visual blackout is bridged by IMU propagation
 in the RECENTLY_LOST window, and a loop correction takes the 4-DoF graph
-and ends with the whole-chain inertial BA (`_full_inertial_ba`).
+and ends with the whole-chain inertial BA (`_full_inertial_ba`). In
+mono-inertial mode the initialization also estimates the map's metric
+scale and rescales the map (`_apply_map_scale`).
+
+`activate_localization_mode` freezes the map: tracking goes on, no keyframe
+is created, until `deactivate_localization_mode`.
 
 The reference's tunnel workarounds (device-scalar cache, upload thread,
-batched fetches with `_complete_batch`) are not carried over. Fisheye
-configurations raise at construction; `track_monocular_imu` raises until
-the monocular front end is ported.
+batched fetches with `_complete_batch`) and its frame-overlay drawing are
+not carried over.
 """
 from __future__ import annotations
 
@@ -47,12 +57,13 @@ import torch
 from ..models import map_state as M
 from ..models.vocab import KeyFrameDatabase, place_scores
 from ..ops import imu as imu_ops
-from ..ops import inertial_opt
+from ..ops import inertial_opt, matching, twoview
 from ..ops.lie import rot_to_quat
 from ..ops.orb import OrbConfig
 from . import mapping_ops as mo
 from . import tracking_ops as to
-from .frontend import Calib, FrameData, process_stereo_stacked
+from .frontend import (Calib, FrameData, process_mono, process_rgbd,
+                       process_stereo_fisheye, process_stereo_stacked)
 from .loop_closing import LoopCloser
 from .sparsification import Sparsifier
 
@@ -62,8 +73,8 @@ PIPELINE_DEPTH = 2
 
 @dataclass
 class SystemConfig:
-    """The reference's SystemConfig fields that the stereo and
-    stereo-inertial paths read, with its defaults."""
+    """The reference's SystemConfig fields that the port's paths read, with
+    its defaults."""
 
     calib: Calib = None
     orb: OrbConfig = None
@@ -106,6 +117,8 @@ class SystemConfig:
     imu_acc_walk: float = 1e-4
     # body-from-camera extrinsic (ref IMU.T_b_c1), 4x4; None = identity
     Tbc: object = None
+    # localization-only mode (ref System::ActivateLocalizationMode): track
+    # against the frozen map, no new keyframes
     localization_only: bool = False
     # RECENTLY_LOST grace window before LOST, in seconds (ref
     # time_recently_lost, src/Tracking.cc:1947-2018)
@@ -173,8 +186,6 @@ class System:
     def __init__(self, cfg: SystemConfig, device=None):
         """device: where the map and every step run; None means the CUDA
         card, and raises when there is none (the CPU only on request)."""
-        if cfg.calib.is_fisheye_stereo or cfg.calib.model != 0:
-            raise NotImplementedError("fisheye cameras are not ported yet")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -245,9 +256,15 @@ class System:
         # starts after irrecoverable loss (ref Tracking::CreateMapInAtlas)
         self.active_map = 0
         self.kf_maps: list[int] = []
-        # RANSAC draws of relocalization
+        # RANSAC draws of relocalization and of the monocular two-view
+        # initialization
         self._reloc_gen = torch.Generator(device=self.device)
         self._reloc_gen.manual_seed(0xE10C)
+        self._init_gen = torch.Generator(device=self.device)
+        self._init_gen.manual_seed(3)
+        self._mono_init_frame = None
+        self._mono_init_ts = None
+        self._mono_init_fid = None
         # the sparsified-keyframe database is System state: relocalization
         # reads it with loop closing off
         self.kf_db = None
@@ -273,17 +290,29 @@ class System:
         del next_images
         self.frame_id += 1
         t0 = time.perf_counter()
-        stacked = np.stack([self._as_uint8(img_l), self._as_uint8(img_r)])
-        frame = process_stereo_stacked(
-            torch.from_numpy(stacked).to(self.device), self.calib, self.orb)
+        frame = self._dispatch_frontend(img_l, img_r)
         self._tic(t0, "frontend")
         return self._advance(frame, timestamp)
+
+    def _dispatch_frontend(self, img_l, img_r) -> FrameData:
+        """The stereo frontend of this calibration: an unrectified KB8 pair
+        goes through lapping-area matching and two-view triangulation, a
+        rectified pair through row-aligned stereo matching."""
+        stacked = torch.from_numpy(np.stack(
+            [self._as_uint8(img_l), self._as_uint8(img_r)])).to(self.device)
+        if self.calib.is_fisheye_stereo:
+            return process_stereo_fisheye(stacked, self.calib, self.orb)
+        return process_stereo_stacked(stacked, self.calib, self.orb)
 
     def track_stereo_imu(self, img_l, img_r, timestamp: float,
                          imu_rows) -> np.ndarray:
         """Stereo-inertial step (ref System::TrackStereo with vImuMeas):
         imu_rows (M,7) = [dt, ax, ay, az, gx, gy, gz], the measurements
         since the previous frame."""
+        self._queue_imu_rows(imu_rows, timestamp)
+        return self.track_stereo(img_l, img_r, timestamp)
+
+    def _queue_imu_rows(self, imu_rows, timestamp: float):
         imu_rows = np.asarray(imu_rows, np.float32).reshape(-1, 7)
         self._imu_frame_rows = imu_rows
         # rows carry the id of the frame they precede: keyframe creation
@@ -291,12 +320,38 @@ class System:
         # swallow the next frame's measurements
         self._imu_accum.append((self.frame_id + 1, imu_rows))
         self._last_ts = timestamp
-        return self.track_stereo(img_l, img_r, timestamp)
 
-    def track_monocular_imu(self, img, timestamp: float, imu_rows):
-        raise NotImplementedError(
-            "track_monocular_imu needs the monocular front end, which is "
-            "not ported yet (ROADMAP queue 1 item 13)")
+    def track_monocular_imu(self, img, timestamp: float,
+                            imu_rows) -> np.ndarray:
+        """Mono-inertial step (ref System::TrackMonocular with vImuMeas):
+        the IMU makes the monocular map metric; the initialization estimates
+        a scale and re-fits it every ~10 s until 75 s (`_try_imu_init`)."""
+        self._queue_imu_rows(imu_rows, timestamp)
+        return self.track_monocular(img, timestamp)
+
+    def track_rgbd(self, img, depth, timestamp: float) -> np.ndarray:
+        """Process one registered RGB-D frame (ref System::TrackRGBD); depth
+        in metres, same size as the image."""
+        self.frame_id += 1
+        t0 = time.perf_counter()
+        frame = process_rgbd(
+            torch.from_numpy(self._as_uint8(img)).to(self.device),
+            torch.as_tensor(np.asarray(depth), dtype=torch.float32,
+                            device=self.device), self.calib, self.orb)
+        self._tic(t0, "frontend")
+        return self._advance(frame, timestamp)
+
+    def track_monocular(self, img, timestamp: float) -> np.ndarray:
+        """Process one monocular frame (ref System::TrackMonocular). The map
+        scale is arbitrary (median scene depth 1 at the initialization)."""
+        self.frame_id += 1
+        t0 = time.perf_counter()
+        frame = process_mono(
+            torch.from_numpy(self._as_uint8(img)).to(self.device),
+            self.calib, self.orb)
+        self._tic(t0, "frontend")
+        return self._advance(frame, timestamp,
+                             init_fn=self._monocular_initialization)
 
     @staticmethod
     def _as_uint8(img):
@@ -305,13 +360,15 @@ class System:
             return a
         return np.clip(a, 0, 255).astype(np.uint8)
 
-    def _advance(self, frame: FrameData, timestamp: float) -> np.ndarray:
+    def _advance(self, frame: FrameData, timestamp: float,
+                 init_fn=None) -> np.ndarray:
         """Per-frame state machine: in OK the tracking step is dispatched
-        and the previous in-flight frame is completed behind it."""
+        and the previous in-flight frame is completed behind it. `init_fn`
+        builds the first map (stereo initialization by default)."""
         t0 = time.perf_counter()
         if self.state == NOT_INITIALIZED:
             self._flush_pipeline()
-            self._stereo_initialization(frame, timestamp)
+            (init_fn or self._stereo_initialization)(frame, timestamp)
             self._imu_frame_rows = None
             self._tic(t0, "track")
             return self.current_pose()
@@ -377,6 +434,15 @@ class System:
                   f"{np.median(a)*1e3:8.2f}ms {np.percentile(a, 95)*1e3:7.1f}"
                   f"ms {a.sum():7.2f}s", file=file)
 
+    # localization-only mode (ref System::ActivateLocalizationMode /
+    # DeactivateLocalizationMode): tracking goes on against the frozen map
+
+    def activate_localization_mode(self):
+        self.cfg.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.cfg.localization_only = False
+
     def shutdown(self):
         """Flush the pipeline and sparsify every keyframe left (ref
         ShutdownMapCompressing)."""
@@ -411,13 +477,50 @@ class System:
                 f.write(" ".join(f"{v:.9e}" for v in Twc[:3].reshape(-1))
                         + "\n")
 
-    def save_trajectory_tum(self, path: str):
+    @staticmethod
+    def _write_tum(path: str, rows, euroc: bool = False, digits: int = 7):
+        """Rows (ts, twc, q_wxyz) in the TUM layout `ts tx ty tz qx qy qz
+        qw`; the EuRoC layout has nanosecond timestamps."""
         with open(path, "w") as f:
-            for ts, Twc in self.poses_wc():
-                q = rot_to_quat(torch.from_numpy(Twc[:3, :3])).numpy()
-                t = Twc[:3, 3]
-                f.write(f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
-                        f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
+            for ts, t, q in rows:
+                stamp = f"{ts * 1e9:.0f}" if euroc else f"{ts:.6f}"
+                f.write(stamp + "".join(f" {v:.{digits}f}" for v in
+                                        (*t, q[1], q[2], q[3], q[0])) + "\n")
+
+    def _frame_traj_rows(self):
+        """(ts, twc (3,), q_wxyz (4,)) per tracked frame."""
+        return [(ts, Twc[:3, 3],
+                 rot_to_quat(torch.from_numpy(Twc[:3, :3])).numpy())
+                for ts, Twc in self.poses_wc()]
+
+    def _keyframe_traj_rows(self):
+        """(ts, twc (3,), q_wxyz (4,)) per valid keyframe, in slot order."""
+        self._flush_pipeline()
+        ms = self.ms
+        kf_valid = ms.kf_valid.cpu().numpy()
+        R = ms.kf_R.cpu().numpy()
+        t = ms.kf_t.cpu().numpy()
+        frame_ids = ms.kf_frame_id.cpu().numpy()
+        ts_by_frame = {e.frame_id: e.timestamp for e in self.trajectory}
+        rows = []
+        for k in np.flatnonzero(kf_valid):
+            Rwc = R[k].T
+            q = rot_to_quat(torch.from_numpy(np.ascontiguousarray(Rwc)))
+            rows.append((ts_by_frame.get(int(frame_ids[k]), 0.0),
+                         -Rwc @ t[k], q.numpy()))
+        return rows
+
+    def save_trajectory_tum(self, path: str):
+        self._write_tum(path, self._frame_traj_rows())
+
+    def save_trajectory_euroc(self, path: str):
+        self._write_tum(path, self._frame_traj_rows(), euroc=True, digits=9)
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        self._write_tum(path, self._keyframe_traj_rows())
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        self._write_tum(path, self._keyframe_traj_rows(), euroc=True)
 
     # ------------------------------------------------------------------
     # internals
@@ -470,6 +573,164 @@ class System:
         if self._loop_closer is not None:
             self._loop_closer.insert_keyframe(kf_slot)
         self._record(timestamp, lost=False)
+
+    def _monocular_initialization(self, frame: FrameData, timestamp: float):
+        """Ref Tracking::MonocularInitialization + CreateInitialMapMonocular:
+        a frame with > 100 features becomes the first view; a later frame
+        with >= 100 mutual matches to it goes through the two-view
+        reconstruction, and a success makes both the first two keyframes,
+        the inlier points (median depth 1) their map, followed by one
+        local-mapping pass. Every frame before that is recorded lost."""
+        n_valid = int(frame.feats.valid.sum())            # sync: host choice
+        if self._mono_init_frame is None:
+            if n_valid > 100:
+                self._mono_init_frame = frame
+                self._mono_init_ts = timestamp
+                self._mono_init_fid = self.frame_id
+            self._record(timestamp, lost=True)
+            return
+        f0 = self._mono_init_frame
+        mm = matching.mutual_match(f0.feats.desc, f0.feats.valid,
+                                   frame.feats.desc, frame.feats.valid,
+                                   max_dist=matching.TH_LOW, nn_ratio=0.9)
+        if int(mm.n_matches) < 100:                       # sync: host choice
+            self._mono_init_frame = frame if n_valid > 100 else None
+            self._mono_init_ts = timestamp
+            self._mono_init_fid = self.frame_id
+            self._record(timestamp, lost=True)
+            return
+        has = mm.idx_b >= 0
+        xy2 = frame.feats.xy[mm.idx_b.clamp(min=0).long()]
+        res = twoview.reconstruct(
+            self.calib.model, self.calib.params_array(self.device),
+            f0.feats.xy, xy2, has, self._init_gen)
+        if not bool(res.ok):                              # sync: host choice
+            self._record(timestamp, lost=True)
+            return
+
+        # normalize the scale: median inlier depth -> 1
+        inl = res.inlier.cpu().numpy()
+        X = res.X1.cpu().numpy().copy()
+        med = np.median(X[inl, 2]) if inl.any() else 1.0
+        X /= med
+        t1 = res.t.cpu().numpy() / med
+
+        n_feat = self.cfg.map.n_feat
+        # fresh point slots from the pool's free list (an Atlas reset may
+        # leave the old map's points live in lower slots)
+        free = np.flatnonzero(~self.ms.mp_valid.cpu().numpy())
+        inl_pos = np.flatnonzero(inl)[:len(free)]
+        inl = np.zeros_like(inl)
+        inl[inl_pos] = True
+        n_new = int(inl.sum())
+        slots = np.full(n_feat, -1, np.int32)
+        slots[inl_pos] = free[:n_new]
+        obs1 = np.full(n_feat, -1, np.int32)
+        ib = mm.idx_b.cpu().numpy()
+        obs1[ib[inl_pos]] = slots[inl_pos]
+
+        kf0 = self._alloc_kf_slot()
+        kf1 = self._alloc_kf_slot()
+        if kf0 is None or kf1 is None:
+            self._record(timestamp, lost=True)
+            return
+        dev = self.device
+        f32 = torch.float32
+        fid0 = self._mono_init_fid
+        for slot, fr, R_, t_, obs, fid, ko in (
+                (kf0, f0, torch.eye(3, device=dev),
+                 torch.zeros(3, device=dev), slots, fid0, 0),
+                (kf1, frame, res.R.to(f32),
+                 torch.as_tensor(t1, dtype=f32, device=dev), obs1,
+                 self.frame_id, 1)):
+            self.ms = M.insert_keyframe(
+                self.ms, slot, R_, t_, fr.feats.xy, fr.feats.octave,
+                fr.feats.desc, fr.u_right, fr.depth, fr.feats.valid,
+                torch.from_numpy(obs).to(dev), fid, kf_ord=self.kf_ord + ko,
+                angle=fr.feats.angle)
+        # map points: descriptors from the first view's features, normals
+        # toward its camera
+        sel = np.flatnonzero(inl)
+        pos = X[sel]
+        dist = np.linalg.norm(pos, axis=1)
+        normal = pos / np.maximum(dist, 1e-9)[:, None]
+        oct0 = f0.feats.octave.cpu().numpy()[sel]
+        maxd = dist * (self.orb.scale_factor ** oct0)
+        mind = maxd / (self.orb.scale_factor ** (self.orb.n_levels - 1))
+        sel_t = torch.from_numpy(sel).to(dev)
+
+        def T(a, dtype=f32):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+        self.ms = M.add_map_points(
+            self.ms, T(slots[sel], torch.int32),
+            torch.ones(n_new, dtype=torch.bool, device=dev), T(pos),
+            f0.feats.desc[sel_t], T(normal), T(mind), T(maxd),
+            torch.full((n_new,), kf0, dtype=torch.int32, device=dev),
+            # creation ordinal = the SECOND keyframe's, so the young-point
+            # cull (2 <= age <= 3 and n_obs <= 2) does not fire during the
+            # initial map's own local-mapping pass
+            torch.full((n_new,), self.kf_ord + 1, dtype=torch.int32,
+                       device=dev),
+            angle=f0.feats.angle[sel_t])
+        self.kf_ord += 2
+        self.kf_order += [kf0, kf1]
+        if self.kf_db is not None:
+            self.kf_db.set_row(kf0, f0.feats.desc, f0.feats.valid)
+            self.kf_db.set_row(kf1, frame.feats.desc, frame.feats.valid)
+        if self.cfg.use_imu:
+            # the per-keyframe IMU bookkeeping: the kf0 -> kf1 interval's
+            # rows are those tagged (fid0, fid1]; rows from before the first
+            # view are dropped, rows after kf1 stay queued for the next
+            # keyframe's segment (without this split the first segment after
+            # the initialization would hold every row since frame 0)
+            seg01 = [r for f, r in self._imu_accum
+                     if fid0 < f <= self.frame_id]
+            self._imu_accum = [(f, r) for f, r in self._imu_accum
+                               if f > self.frame_id]
+            self._kf_times += [self._mono_init_ts, timestamp]
+            self._kf_imu_segments += [np.zeros((0, 7), np.float32),
+                                      np.concatenate(seg01) if seg01
+                                      else np.zeros((0, 7), np.float32)]
+        self.n_mp += n_new
+        self.ref_kf = kf1
+        self.last_kf_frame = self.frame_id
+        self.last_matched = self.ms.obs_mp[kf1].clone()
+        self.n_inliers_ref = n_new
+        self.state = OK
+        self._obs_dirty = True
+        self._mono_init_frame = None
+        self._Rt_dev = None
+        self._Rt_dev2 = None
+        self._has_vel = False
+        self.vel = None
+        self._lost_ts = None
+        self._local_mapping(kf1)
+        self._refresh_ref_pose()
+        self.last_R, self.last_t = self._ref_pose_np
+        self._record(timestamp, lost=False)
+
+    def _local_mapping(self, kf_slot: int):
+        """One local-mapping pass on a keyframe already in the map (ref
+        LocalMapping::Run body): triangulation, fusion, window BA, point and
+        keyframe culling, then the sparsifier's and the loop closer's
+        feeds."""
+        cfg = self.cfg
+        Wk = cfg.map.window_kf
+        t0 = time.perf_counter()
+        cullable, red_th = self._cull_policy()
+        out = mo.mapping_step(
+            self.ms, self.calib, self.orb, kf_slot, self.kf_ord,
+            n_tri=cfg.n_triangulate_neighbors, window_kf=Wk,
+            n_fixed=cfg.n_fixed_cams, pt_cap=cfg.map.local_mp_cap,
+            ba_iters=cfg.ba_iters, cullable=cullable, red_th=red_th)
+        self.ms = out.ms
+        self._n_obs_dev = out.n_obs
+        self._obs_mask_dev = out.obs_mask
+        self._obs_dirty = False
+        info = out.info.cpu().numpy()        # sync: the one keyframe fetch
+        self.n_mp += int(info[0])
+        self._tic(t0, "mapping_step")
+        self._window_feeds(kf_slot, info[4:4 + Wk], info[4 + Wk:4 + 2 * Wk])
 
     def _dispatch_track(self, frame: FrameData, timestamp: float):
         """Enqueue this frame's tracking step; every input is a host
@@ -935,11 +1196,15 @@ class System:
         if self.ref_kf == slot:
             self._ref_pose_np = (info[6:15].reshape(3, 3).astype(np.float32),
                                  info[15:18].astype(np.float32))
-        self._free_keyframes([int(v) for v in info[18 + Wk:18 + 2 * Wk]
-                              if v >= 0])
+        self._window_feeds(slot, info[18:18 + Wk], info[18 + Wk:18 + 2 * Wk])
+
+    def _window_feeds(self, slot: int, window, culled):
+        """A mapped keyframe's feeds, from its window's and its culled
+        keyframes' slot columns (-1 = none): the free-list, the
+        sparsifier's window, the loop closer's queue."""
+        self._free_keyframes([int(v) for v in culled if v >= 0])
         if self._sparsifier is not None:
-            self._sparsifier.observe_window(
-                [int(v) for v in info[18:18 + Wk] if v >= 0])
+            self._sparsifier.observe_window([int(v) for v in window if v >= 0])
         if self._loop_closer is not None:
             self._loop_closer.insert_keyframe(slot)
 

@@ -289,3 +289,134 @@ def test_vi_window_ba_card_against_cpu():
     truth = torch.as_tensor(p[kf][n_a:], dtype=f32)
     assert float((card.p_wb.cpu() - truth).abs().max()) < 0.05
     assert float(lie.so3_log(card.R_wb.cpu()).abs().max()) < 5e-3
+
+
+KB8_TUMVI = [190.97847715128717, 190.9733070521226, 254.93170605935475,
+             256.8974428996504, 0.0034823894022493434, 0.0007150348452162257,
+             -0.0020532361418706202, 0.00020293673591811182]
+
+
+@pytest.mark.cuda
+def test_kb8_card_against_cpu():
+    """KB8 projection, its Jacobian and the 10-step Newton unprojection on
+    the card against the CPU: float32 elementwise arithmetic, so 1e-4 px
+    and 1e-5 in the bearing (the card's transcendental functions round
+    differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.ops import cameras
+    rng = np.random.default_rng(4)
+    th = rng.uniform(0.0, np.radians(80), 4096)
+    ph = rng.uniform(-np.pi, np.pi, 4096)
+    X = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                  np.cos(th)], -1) * rng.uniform(0.5, 8, (4096, 1))
+    p = torch.tensor(KB8_TUMVI)
+    X = torch.from_numpy(X.astype(np.float32))
+    for fn, arg, tol in (("kb8_project", X, 1e-3),
+                         ("kb8_project_jac", X, 1e-3)):
+        cpu = getattr(cameras, fn)(p, arg)
+        card = getattr(cameras, fn)(p.cuda(), arg.cuda())
+        assert card.is_cuda
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(),
+                                   rtol=1e-5, atol=tol)
+    uv = cameras.kb8_project(p, X)
+    cpu = cameras.project(cameras.KB8, p, cameras.unproject(cameras.KB8, p,
+                                                            uv))
+    card = cameras.project(cameras.KB8, p.cuda(),
+                           cameras.unproject(cameras.KB8, p.cuda(),
+                                             uv.cuda()))
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=1e-3)
+    np.testing.assert_allclose(card.cpu().numpy(), uv.numpy(), atol=2e-3)
+
+
+def _mono_view(seed=0, H=384, W=1248, fx=718.856):
+    from ms_slam_tpu_torch.utils import synth
+    rng = np.random.default_rng(seed)
+    world = synth.PlaneWorld(rng, z_wall=14.0, y_floor=2.0)
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+    T = synth.make_trajectory(30, "arc")[3]
+    img, depth = world.render_rgbd(K, T, H, W)
+    img = np.clip(img + rng.normal(0, 2.0, img.shape), 0, 255)
+    return img.astype(np.uint8), depth.astype(np.float32), fx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensor", ["mono", "rgbd"])
+def test_mono_rgbd_frontend_card_against_cpu(sensor):
+    """process_mono / process_rgbd at full width (one 1248x384 image, 2048
+    features, 8 levels: the kernel at B = 1, n = 2048) on the card against
+    the CPU's plain path: one kernel launch, >= 99% of keypoints identical,
+    and on those the descriptors bit for bit and (RGB-D) the depth bit for
+    bit and u_right within 1e-6 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.pipeline import frontend
+    img, depth, fx = _mono_view()
+    calib = frontend.Calib(model=0, params=(fx, fx, 624.0, 192.0),
+                           bf=fx * 0.537, width=1248, height=384,
+                           th_depth=0.537 * 40)
+    cfg = orb.OrbConfig(n_features=2048, n_levels=8)
+
+    def run(dev):
+        im = torch.from_numpy(img).to(dev)
+        if sensor == "mono":
+            return frontend.process_mono(im, calib, cfg)
+        return frontend.process_rgbd(im, torch.from_numpy(depth).to(dev),
+                                     calib, cfg)
+    cpu = run("cpu")
+    before = orb.patch_gather_launches
+    card = run("cuda")
+    torch.cuda.synchronize()
+    assert orb.patch_gather_launches == before + 1
+    fc, fg = cpu.feats, card.feats
+    same = ((fc.xy == fg.xy.cpu()).all(1) & (fc.octave == fg.octave.cpu())
+            & (fc.valid == fg.valid.cpu()))
+    assert float(same.float().mean()) >= 0.99
+    assert int(fc.valid.sum()) > 1000
+    assert torch.equal(fc.desc[same], fg.desc.cpu()[same])
+    if sensor == "rgbd":
+        assert torch.equal(cpu.depth[same], card.depth.cpu()[same])
+        np.testing.assert_allclose(card.u_right.cpu()[same].numpy(),
+                                   cpu.u_right[same].numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_twoview_reconstruct_card_against_cpu():
+    """reconstruct_from_hypotheses on the card and on the CPU from one
+    injected (256, 8) table (cuSOLVER's batched SVDs against LAPACK's): the
+    same ok, rotation within 1e-3 rad, translation direction within 1e-3
+    and at most 1% of the inlier flags differing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from scipy.spatial.transform import Rotation
+
+    from ms_slam_tpu_torch.ops import twoview
+    rng = np.random.default_rng(5)
+    fx, W, H, N = 260.0, 320, 240, 600
+    X = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N),
+                  rng.uniform(6, 16, N)], -1)
+    R2 = Rotation.from_euler("y", 0.05).as_matrix()
+    t2 = np.array([-0.6, 0.05, 0.1])
+
+    def proj(Xc):
+        return np.stack([fx * Xc[:, 0] / Xc[:, 2] + W / 2,
+                         fx * Xc[:, 1] / Xc[:, 2] + H / 2], -1)
+    xy1 = proj(X) + rng.normal(0, 0.3, (N, 2))
+    xy2 = proj(X @ R2.T + t2) + rng.normal(0, 0.3, (N, 2))
+    valid = np.ones(N, bool)
+    valid[::10] = False
+    idx = rng.choice(np.flatnonzero(valid), (256, 8))
+    args = [torch.tensor([fx, fx, W / 2, H / 2, 0, 0, 0, 0]),
+            torch.from_numpy(xy1.astype(np.float32)),
+            torch.from_numpy(xy2.astype(np.float32)),
+            torch.from_numpy(valid), torch.from_numpy(idx)]
+    cpu = twoview.reconstruct_from_hypotheses(0, *args)
+    card = twoview.reconstruct_from_hypotheses(0, *[a.cuda() for a in args])
+    assert card.R.is_cuda and bool(cpu.ok) and bool(card.ok)
+    Rc, Rg = cpu.R.numpy(), card.R.cpu().numpy()
+    ang = np.arccos(np.clip((np.trace(Rg @ Rc.T) - 1) / 2, -1, 1))
+    assert ang < 1e-3
+    assert np.linalg.norm(card.t.cpu().numpy() - cpu.t.numpy()) < 1e-3
+    assert (card.inlier.cpu() != cpu.inlier).float().mean() <= 0.01
+    ang_gt = np.arccos(np.clip((np.trace(Rg @ R2.T) - 1) / 2, -1, 1))
+    assert np.degrees(ang_gt) < 1.0

@@ -68,10 +68,11 @@ def _same_lists(a, b):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
-def test_use_imu_constructs_and_mono_entry_raises():
-    """`use_imu=True` builds (it raised before the inertial slice), with the
-    reference's defaults for the IMU keys; the mono-inertial entry point
-    names the ROADMAP item it waits for."""
+def test_use_imu_constructs_and_mono_entry_tags_rows(rng, monkeypatch):
+    """`use_imu=True` builds with the reference's defaults for the IMU keys;
+    the mono-inertial entry point queues its rows tagged with the frame they
+    precede and hands the image to `track_monocular`, as the reference's
+    does."""
     ref, port = _pair(Tbc=TBC)
     for k in ("imu_init_kfs", "imu_init_time", "imu_protect_nd",
               "imu_noise_gyro", "imu_noise_acc", "imu_gyro_walk",
@@ -79,8 +80,19 @@ def test_use_imu_constructs_and_mono_entry_raises():
         assert getattr(SystemConfig(), k) == getattr(JSystemConfig(), k), k
     np.testing.assert_allclose(port.Tcb, ref.Tcb)
     assert not port.imu_initialized and port._imu_stage == 0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port.track_monocular_imu(None, 0.0, np.zeros((1, 7)))
+    rows = _rows(rng, 20)
+    for slam in (ref, port):
+        calls = []
+        monkeypatch.setattr(slam, "track_monocular",
+                            lambda img, ts, calls=calls: calls.append((img,
+                                                                       ts)))
+        slam.frame_id = 6
+        slam.track_monocular_imu("img", 0.7, rows)
+        assert calls == [("img", 0.7)]
+        assert slam._imu_accum[-1][0] == 7 and slam._last_ts == 0.7
+        np.testing.assert_array_equal(slam._imu_frame_rows, rows)
+    _same_lists([r for _, r in port._imu_accum],
+                [r for _, r in ref._imu_accum])
 
 
 @pytest.mark.parametrize("n", [20, 64, 65, 200])

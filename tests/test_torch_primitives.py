@@ -149,9 +149,87 @@ def test_pinhole_jacobian(rng):
           rand_points(rng, 16))
 
 
-def test_kb8_not_ported():
-    with pytest.raises(NotImplementedError):
-        tcam.project(tcam.KB8, torch.zeros(8), torch.ones(1, 3))
+# Kannala-Brandt8 (configs/TUM-VI-Fisheye.yaml's first camera). Points up
+# to ~80 degrees off the axis; project and its Jacobian at rtol 1e-5 (atol
+# 1e-4 px on O(100) px values, 1e-3 on Jacobian entries of O(100)); the
+# unprojection's 10 Newton steps at rtol 1e-5 with atol 1e-6 (two
+# implementations of the same float32 iteration).
+KB8 = np.asarray([190.97847715128717, 190.9733070521226, 254.93170605935475,
+                  256.8974428996504, 0.0034823894022493434,
+                  0.0007150348452162257, -0.0020532361418706202,
+                  0.00020293673591811182], np.float32)
+
+
+def kb8_points(rng, n=64):
+    theta = rng.uniform(0.0, np.radians(80), n)
+    phi = rng.uniform(-np.pi, np.pi, n)
+    r = rng.uniform(0.5, 8.0, n)
+    X = np.stack([r * np.sin(theta) * np.cos(phi),
+                  r * np.sin(theta) * np.sin(phi), r * np.cos(theta)], -1)
+    return X.astype(np.float32)
+
+
+def test_kb8_project_parity(rng):
+    check(jcam.kb8_project, tcam.kb8_project, KB8, kb8_points(rng),
+          atol=1e-4)
+
+
+def test_kb8_project_jac_parity(rng):
+    check(jcam.kb8_project_jac, tcam.kb8_project_jac, KB8, kb8_points(rng),
+          atol=1e-3)
+    # and the Jacobian is the derivative of the projection
+    X = torch.from_numpy(kb8_points(rng, 8)).double()
+    J = tcam.kb8_project_jac(torch.from_numpy(KB8).double(), X)
+    Jn = torch.autograd.functional.jacobian(
+        lambda x: tcam.kb8_project(torch.from_numpy(KB8).double(), x), X)
+    Jn = torch.stack([Jn[i, :, i] for i in range(len(X))])
+    np.testing.assert_allclose(J.numpy(), Jn.numpy(), rtol=1e-6, atol=1e-8)
+
+
+def test_kb8_unproject_parity_and_round_trip(rng):
+    uv = np.array(jcam.kb8_project(jnp.asarray(KB8),
+                                   jnp.asarray(kb8_points(rng))))
+    check(jcam.kb8_unproject, tcam.kb8_unproject, KB8, uv.astype(np.float32),
+          atol=1e-6)
+    p = torch.from_numpy(KB8)
+    back = tcam.kb8_project(p, tcam.kb8_unproject(p, torch.from_numpy(uv)))
+    assert float((back - torch.from_numpy(uv)).abs().max()) < 1e-3
+
+
+def test_kb8_near_the_optical_axis(rng):
+    """r -> 0: the projection takes its guarded branch (scale 1 at r <=
+    1e-8), the Jacobian floors r^2 at 1e-12, the unprojection takes scale 1
+    at theta_d <= 1e-8; both packages alike."""
+    X = np.asarray([[0.0, 0.0, 2.0], [1e-9, 0.0, 1.0], [1e-7, -2e-7, 3.0],
+                    [1e-4, 1e-4, 1.0]], np.float32)
+    check(jcam.kb8_project, tcam.kb8_project, KB8, X, atol=1e-4)
+    check(jcam.kb8_project_jac, tcam.kb8_project_jac, KB8, X, atol=1e-3)
+    uv = np.asarray([[KB8[2], KB8[3]], [KB8[2] + 1e-6, KB8[3]],
+                     [KB8[2] + 0.01, KB8[3] - 0.02]], np.float32)
+    check(jcam.kb8_unproject, tcam.kb8_unproject, KB8, uv, atol=1e-6)
+    out = tcam.kb8_project_jac(torch.from_numpy(KB8), torch.from_numpy(X))
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("model", ["PINHOLE", "KB8"])
+def test_model_dispatch(rng, model):
+    """`project`, `unproject` and `project_jac` pick the model by its id, as
+    the reference's switch does; pad_params zero-pads to 8."""
+    m = getattr(jcam, model)
+    assert getattr(tcam, model) == m
+    params = PIN if model == "PINHOLE" else KB8
+    X = kb8_points(rng, 32)
+    check(lambda p, x: jcam.project(m, p, x),
+          lambda p, x: tcam.project(m, p, x), params, X, atol=1e-4)
+    check(lambda p, x: jcam.project_jac(m, p, x),
+          lambda p, x: tcam.project_jac(m, p, x), params, X, atol=1e-3)
+    uv = np.asarray(jcam.project(m, jnp.asarray(params), jnp.asarray(X)))
+    check(lambda p, u: jcam.unproject(m, p, u),
+          lambda p, u: tcam.unproject(m, p, u), params, uv.astype(np.float32),
+          atol=1e-6)
+    np.testing.assert_array_equal(
+        tcam.pad_params(params[:4].tolist()).numpy(),
+        np.asarray(jcam.pad_params(params[:4].tolist())))
 
 
 def test_huber_weight(rng):

@@ -37,8 +37,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, FX, BASELINE = 240, 320, 260.0, 0.15
 
 
-def _cfg(calib_t, orb_t, map_t, cfg_t):
-    calib = calib_t(model=0, params=(FX, FX, W / 2, H / 2), bf=FX * BASELINE,
+def _cfg(calib_t, orb_t, map_t, cfg_t, fx=FX):
+    calib = calib_t(model=0, params=(fx, fx, W / 2, H / 2), bf=fx * BASELINE,
                     width=W, height=H, th_depth=BASELINE * 40, fps=10.0)
     return cfg_t(calib=calib, orb=orb_t(n_features=512, n_levels=4),
                  map=map_t(max_kf=64, max_mp=8192, n_feat=512,
@@ -176,3 +176,134 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_facade_has_every_public_method_of_the_reference():
+    """Every public method of the reference's System exists on the port's
+    and is callable."""
+    names = [n for n in dir(JSystem)
+             if not n.startswith("_") and callable(getattr(JSystem, n))]
+    assert {"track_monocular", "track_rgbd", "track_monocular_imu",
+            "save_trajectory_euroc"} <= set(names)
+    missing = [n for n in names if not callable(getattr(System, n, None))]
+    assert not missing, missing
+
+
+def _saver_state(rng):
+    """A map of 5 valid keyframes among 8 slots (random poses, frame ids
+    2, 5, 9, 12, 20) and a 24-frame trajectory: entries anchored to those
+    keyframes, two absolute entries (reference slot -1) and three lost ones,
+    EuRoC-size timestamps."""
+    from scipy.spatial.transform import Rotation
+    from ms_slam_tpu_torch.models import map_state as TM
+    cfg = _cfg(Calib, OrbConfig, MapConfig, SystemConfig)
+    d = TM.map_state_to_numpy(TM.empty_map(cfg.map, "cpu"))
+    slots = [0, 1, 3, 4, 6]
+    d["kf_valid"][slots] = True
+    d["kf_R"][slots] = Rotation.random(5, random_state=1).as_matrix()
+    d["kf_t"][slots] = rng.normal(0, 2.0, (5, 3))
+    d["kf_frame_id"][slots] = [2, 5, 9, 12, 20]
+    t0 = 1403636579.763555584
+    entries = []
+    for i in range(24):
+        Rr = Rotation.from_rotvec(rng.normal(0, 0.2, 3)).as_matrix()
+        T_cr = np.eye(4)
+        T_cr[:3, :3], T_cr[:3, 3] = Rr, rng.normal(0, 0.5, 3)
+        ref_kf = -1 if i in (7, 15) else slots[i % 5]
+        entries.append((i, t0 + 0.05 * i, ref_kf, T_cr, i in (0, 1, 17)))
+    return d, entries
+
+
+def test_trajectory_savers_match_the_reference(rng, tmp_path):
+    """Both Systems hold one map state and one trajectory; all five savers
+    of each are read back as numbers: timestamps exact, the rest within
+    1e-6 relative (1e-6 absolute for entries near zero)."""
+    import jax.numpy as jnp
+
+    from ms_slam_tpu.models import map_state as JM
+    from ms_slam_tpu.pipeline.system import TrajectoryEntry as JEntry
+    from ms_slam_tpu_torch.models import map_state as TM
+    from ms_slam_tpu_torch.pipeline.system import TrajectoryEntry
+    d, entries = _saver_state(rng)
+    ref = JSystem(_cfg(JCalib, JOrbConfig, JMapConfig, JSystemConfig))
+    port = System(_cfg(Calib, OrbConfig, MapConfig, SystemConfig),
+                  device="cpu")
+    ref.ms = JM.MapState(**{k: jnp.asarray(v) for k, v in d.items()})
+    port.ms = TM.map_state_from_numpy(d)
+    ref.trajectory = [JEntry(f, ts, r, T.copy(), lost)
+                      for f, ts, r, T, lost in entries]
+    port.trajectory = [TrajectoryEntry(f, ts, r, T.copy(), lost)
+                       for f, ts, r, T, lost in entries]
+    savers = ("save_trajectory_kitti", "save_trajectory_tum",
+              "save_trajectory_euroc", "save_keyframe_trajectory_tum",
+              "save_keyframe_trajectory_euroc")
+    n_rows = {"save_trajectory_kitti": 21, "save_trajectory_tum": 21,
+              "save_trajectory_euroc": 21, "save_keyframe_trajectory_tum": 5,
+              "save_keyframe_trajectory_euroc": 5}
+    for name in savers:
+        a, b = tmp_path / f"ref_{name}.txt", tmp_path / f"port_{name}.txt"
+        getattr(ref, name)(str(a))
+        getattr(port, name)(str(b))
+        ra, rb = np.loadtxt(a, ndmin=2), np.loadtxt(b, ndmin=2)
+        assert ra.shape == rb.shape == (n_rows[name], ra.shape[1]), name
+        first = 0 if name.endswith("kitti") else 1
+        if first:
+            np.testing.assert_array_equal(rb[:, 0], ra[:, 0])
+            assert [r.split()[0] for r in b.read_text().splitlines()] == \
+                [r.split()[0] for r in a.read_text().splitlines()]
+        np.testing.assert_allclose(rb[:, first:], ra[:, first:], rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+    # and the keyframe rows themselves (the keyframe savers' source)
+    rows_j, rows_t = ref._keyframe_traj_rows(), port._keyframe_traj_rows()
+    assert [r[0] for r in rows_t] == [r[0] for r in rows_j]
+    for (_, tj, qj), (_, tt, qt) in zip(rows_j, rows_t):
+        np.testing.assert_allclose(tt, np.asarray(tj), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(qt, np.asarray(qj), rtol=1e-6, atol=1e-6)
+
+
+def _full_rate_circuit(n, radius=9.0, lap=120):
+    """Phase 7's circuit of chip_smoke.py at its full rate from frame 0:
+    3 degrees and 0.47 m a frame, driven facing forward."""
+    from scipy.spatial.transform import Rotation
+    poses = []
+    for i in range(n):
+        a = 2 * np.pi / lap * i
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_euler("y", a).as_matrix()
+        T[:3, 3] = [radius * np.sin(a), 0.0, radius * (1 - np.cos(a))]
+        poses.append(T)
+    return poses
+
+
+def test_full_rate_start_frame_one():
+    """Both packages on the first 4 frames of phase 7's circuit at full rate
+    (BoxWorld(half=24) at 0.07 m a texel, 320x240 at phase 7's focal length
+    718.856 px, so that the first step moves features ~37 px as at full
+    width): the state after frame 1 and whether frame 1 was recorded lost.
+    With no velocity model at frame 1, both track it from frame 0's pose (3
+    degrees and 0.47 m away); the two packages must agree (measured: both
+    track it, OK and not lost; at fx 260 px too)."""
+    from ms_slam_tpu_torch.utils import synth
+    fx = 718.856
+    world = synth.BoxWorld(np.random.default_rng(0), half=24.0,
+                           tex_scale=0.07)
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+    frames = [world.render_stereo(K, T, BASELINE, H, W)
+              for T in _full_rate_circuit(4)]
+    seen = {}
+    for name, slam in (
+            ("ref", JSystem(_cfg(JCalib, JOrbConfig, JMapConfig,
+                                 JSystemConfig, fx))),
+            ("port", System(_cfg(Calib, OrbConfig, MapConfig, SystemConfig,
+                                 fx), device="cpu"))):
+        states = []
+        for i, (l, r) in enumerate(frames):
+            slam.track_stereo(l, r, 0.1 * i)
+            if i == 2:              # frame 1 completes behind frame 2
+                states.append(slam.state)
+        slam._flush_pipeline()
+        states.append(slam.state)
+        seen[name] = (states, [e.lost for e in slam.trajectory
+                               if e.frame_id == 1])
+    assert seen["port"] == seen["ref"], seen
+    print("state after frame 1, at the end; frame 1 lost:", seen)
