@@ -14,8 +14,9 @@ Phases (any failure exits non-zero; there is no CPU path):
      events, L2 warm; one event pair per launch after a 256 MiB write, L2
      cold) beside its bound (bytes over 3.35 TB/s), the plain version and
      the nearest single PyTorch call; then the same check and times at the
-     monocular / RGB-D shape (one 384x5888 canvas, 2048 keypoints) and the
-     stereo-fisheye shape (two 512x2560 canvases, 2 x 1024 keypoints);
+     monocular / RGB-D shape (one 384x5888 canvas, 2048 keypoints), the
+     stereo-fisheye shape (two 512x2560 canvases, 2 x 1024 keypoints) and
+     the EuRoC shape of phase 13 (two 480x3584 canvases, 2 x 1280);
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -64,12 +65,19 @@ Phases (any failure exits non-zero; there is no CPU path):
  12. mono-inertial at full width: System.track_monocular_imu over
      tests/test_inertial_system.py's 70-frame excited arc to a metric map
      (phase_mono_inertial);
+ 13. the CLI path at configs/EuRoC-Inertial.yaml's width: the verify
+     skill's fabricated EuRoC dataset through the port's own
+     examples.gen_fake_euroc, examples.stereo_inertial_euroc and
+     examples.evaluate_ate, then a checkpoint saved, loaded into a fresh
+     System and relocalized against, and the viewer's outputs
+     (phase_cli);
   then a JSON line of per-kernel results and the final JSON status line.
 Every phase from 4 on checks the kernel's launches in its run: one a frame.
 
 Options, for work on one part: --kernel-only stops after phase 3,
 --loop-only runs phases 1-3 and 7, --imu-only phases 1-3 and 8,
---sensors-only phases 1-3 and 9-12; none of them prints a status line.
+--sensors-only phases 1-3 and 9-12, --cli-only phases 1-3 and 13; none of
+them prints a status line.
 --parent DIR also builds the patch_gather.cu of another checkout of this
 repository (same C interface) and times the two kernels in turns in
 phase 3: parent, this, this, parent.
@@ -239,6 +247,9 @@ def phase_kernel(parent_dir=None):
     _, Wc, _ = orb.canvas_layout(H, W, orb.OrbConfig(n_features=2048,
                                                      n_levels=8))
     _check(Wc == 5888, f"canvas width {Wc} != 5888")
+    _, Wc_euroc, _ = orb.canvas_layout(480, 752, orb.OrbConfig(
+        n_features=1280, n_levels=8))
+    _check(Wc_euroc == 3584, f"EuRoC canvas width {Wc_euroc} != 3584")
     canvas, bi, ys, xs = _kernel_inputs()
     B, Hc, Wc = canvas.shape
     n = bi.shape[0]
@@ -333,10 +344,13 @@ def _library_ms(canvas, bi, ys, xs, ref, name):
 
 
 # the kernel's shapes on the monocular / RGB-D path (one 1248x384 image,
-# 2048 keypoints) and on the stereo-fisheye path (two 512x512 images, 1024
-# keypoints each): (B, canvas height, canvas width, keypoints per image)
+# 2048 keypoints), on the stereo-fisheye path (two 512x512 images, 1024
+# keypoints each) and on the CLI path of phase 13 (two 752x480 EuRoC images,
+# configs/EuRoC-Inertial.yaml's 1200 features rounded up to 1280): (B,
+# canvas height, canvas width, keypoints per image)
 SENSOR_KERNEL_SHAPES = (("mono_rgbd", (1, 384, 5888, 2048)),
-                        ("fisheye", (2, 512, 2560, 1024)))
+                        ("fisheye", (2, 512, 2560, 1024)),
+                        ("euroc", (2, 480, 3584, 1280)))
 
 
 def _kernel_at_shape(lib, name, B, Hc, Wc, n):
@@ -1558,6 +1572,283 @@ def phase_mono_inertial():
     return launches
 
 
+CLI_FRAMES = 40         # the verify skill's 40 frames at 10 Hz
+CLI_FPS = 10.0
+CLI_RELOC_FRAME = 20
+CLI_AFTER = 5           # frames tracked after the relocalization
+
+
+def _cli_geometry():
+    """configs/EuRoC-Inertial.yaml through the port's own settings reader:
+    its width, height, fx, baseline (bf / fx), feature budget, levels and
+    IMU noise block (as yaml scalars, written into the fabricated
+    settings)."""
+    from ms_slam_tpu_torch.utils.config import Settings
+    st = Settings("configs/EuRoC-Inertial.yaml")
+    fx = float(st.get("Camera.fx"))
+    return dict(
+        width=int(st.get("Camera.width")), height=int(st.get("Camera.height")),
+        fx=fx, baseline=float(st.get("Camera.bf")) / fx, fps=CLI_FPS,
+        n=CLI_FRAMES, n_features=int(st.get("ORBextractor.nFeatures")),
+        n_levels=int(st.get("ORBextractor.nLevels")), seed=3,
+        imu_noise=tuple(str(st.get(k)) for k in (
+            "IMU.NoiseGyro", "IMU.NoiseAcc", "IMU.GyroWalk", "IMU.AccWalk")))
+
+
+def phase_cli():
+    """The CLI path at EuRoC-Inertial's full width (phase 13): the verify
+    skill's recipe through the port's own drivers. Data:
+    examples/gen_fake_euroc at configs/EuRoC-Inertial.yaml's 752x480, fx
+    435.2047, bf 47.906 (a baseline of bf / fx = 0.110078 m), 1200 features
+    (1280 after the settings reader's rounding), 8 levels and IMU noise
+    keys; everything
+    else the skill's: PlaneWorld and the "arc" path from seed 3, IMU at 200
+    Hz, its Sparsification block (N=40, window 4, 3 non-local keyframes),
+    loop closing on. Cuts against EuRoC: 10 Hz frames instead of 20 Hz;
+    noise-free IMU rows; rectified renders, so no K_l...P_r keys and no
+    remap; 40 frames.
+
+    With cv2 the dataset goes to disk and
+    examples.stereo_inertial_euroc.main([..., "--device", "cuda"]) runs over
+    it (frames through the native prefetch pipeline when it built, else
+    cv2); without cv2 the same rendered frames go, as StereoFrames with the
+    IMU rows of the written csv, through the same driver loop
+    (stereo_inertial_euroc.run), the settings still written and read by the
+    port's Settings. Held (the skill's bars): state OK, IMU initialized, ATE
+    under 0.1 m against gt.txt through examples.evaluate_ate, one kernel
+    launch a frame. Then the map goes through utils.checkpoint.save_map /
+    load_map into a fresh System from the same settings with use_imu=False
+    (the format holds no inertial state): LOST with equal keyframe and point
+    counts; the stereo pair at frame 20's pose turned 10 degrees and moved
+    0.3 m (phase 5's recipe) relocalizes to OK within 0.35 m; frames 21-25
+    then track OK. utils.viewer: the card map's PLY holds one vertex a live
+    point and keyframe; frame PNGs every 10 frames where matplotlib is
+    present."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from scipy.spatial.transform import Rotation
+
+    from ms_slam_tpu_torch.examples import (evaluate_ate, gen_fake_euroc,
+                                            stereo_inertial_euroc)
+    from ms_slam_tpu_torch.ops import orb
+    from ms_slam_tpu_torch.pipeline.system import System
+    from ms_slam_tpu_torch.utils import checkpoint, native, viewer
+    from ms_slam_tpu_torch.utils.config import Settings
+    from ms_slam_tpu_torch.utils.datasets import EurocStereo, StereoFrame
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("cv2", "yaml", "matplotlib")}
+    t0 = time.perf_counter()
+    built = native.available()
+    print("# cli: " + ", ".join(f"{m} {'present' if v else 'ABSENT'}"
+                               for m, v in have.items())
+          + f"; native runtime {'built' if built else 'NOT built'} in "
+          f"{time.perf_counter() - t0:.2f} s"
+          + ("" if built else f" ({native._load()[1]})"))
+    geo = _cli_geometry()
+    W_, H_, n = geo["width"], geo["height"], geo["n"]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    d = work.name
+    settings = os.path.join(d, "settings.yaml")
+    mav = os.path.join(d, "mav0")
+    traj = os.path.join(d, "traj.txt")
+    t0 = time.perf_counter()
+    if have["cv2"]:
+        frames, poses = gen_fake_euroc.write(d, **geo)
+    else:
+        world, K, poses, imu = gen_fake_euroc.scene(
+            W_, H_, geo["fx"], geo["fps"], n, geo["seed"])
+        frames = gen_fake_euroc.render(world, K, poses, geo["baseline"], W_,
+                                       H_)
+        gen_fake_euroc.write_text(d, poses, imu, geo["fps"],
+                                  gen_fake_euroc.settings_text(
+                                      W_, H_, geo["fx"], geo["baseline"],
+                                      geo["fps"], geo["n_features"],
+                                      geo["n_levels"], geo["imu_noise"]))
+    print(f"# cli ({_card()}): rendered {n} stereo frames of {W_}x{H_} in "
+          f"{time.perf_counter() - t0:.1f} s (fx {geo['fx']}, baseline "
+          f"{geo['baseline']:.6f} m, {geo['n_features']} features, "
+          f"{geo['n_levels']} levels)")
+
+    # what the driver builds, ran and saw: its System (frame PNGs on), its
+    # per-frame times, the frame by which the IMU was initialized, and how
+    # many native prefetch pipelines were opened
+    frames_dir = os.path.join(d, "frames")
+    seen = {"pipes": 0}
+    driver_system, driver_run = stereo_inertial_euroc.System, \
+        stereo_inertial_euroc.run
+    real_pipe = native.PrefetchPipeline
+
+    def drawing_system(cfg, device=None):
+        cfg.frame_draw_every = 10 if have["matplotlib"] else 0
+        cfg.frame_draw_dir = frames_dir
+        seen["slam"] = driver_system(cfg, device=device)
+        return seen["slam"]
+
+    def watched_run(slam, stream, n_frames):
+        def watched():
+            for i, fr in enumerate(stream):
+                if slam.imu_initialized and "init" not in seen:
+                    seen["init"] = i - 1
+                yield fr
+        seen["times"] = driver_run(slam, watched(), n_frames)
+        return seen["times"]
+
+    class CountedPipe(real_pipe):
+        def __init__(self, *a, **k):
+            seen["pipes"] += 1
+            super().__init__(*a, **k)
+    stereo_inertial_euroc.System = drawing_system
+    stereo_inertial_euroc.run = watched_run
+    native.PrefetchPipeline = CountedPipe
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        orb.patch_gather_launches = 0
+        t0 = time.perf_counter()
+        if have["cv2"]:
+            slam = stereo_inertial_euroc.main(
+                [settings, mav, "--out", traj, "--device", "cuda"])
+        else:
+            print("# cli: cv2 absent: the rendered frames go through "
+                  "stereo_inertial_euroc.run as StereoFrames (no image files)")
+            st = Settings(settings)
+            cfg = st.system_config()
+            cfg.use_imu = True
+            ds = EurocStereo(mav, with_imu=True)  # timestamps, IMU rows
+            stream, prev = [], None
+            for (im_l, im_r), t_ns in zip(frames, ds.ts):
+                t = t_ns * 1e-9
+                stream.append(StereoFrame(t, im_l.astype(np.float32),
+                                          im_r.astype(np.float32),
+                                          ds._attach_imu(t, prev)))
+                prev = t
+            slam = stereo_inertial_euroc.System(cfg, device="cuda")
+            stereo_inertial_euroc.run(slam, stream, n)
+            slam.save_trajectory_tum(traj)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+    finally:
+        stereo_inertial_euroc.System = driver_system
+        stereo_inertial_euroc.run = driver_run
+        native.PrefetchPipeline = real_pipe
+    launches = orb.patch_gather_launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    fs = np.asarray(seen["times"])
+    route = ("the native prefetch pipeline" if seen["pipes"]
+             else "cv2 in the loop" if have["cv2"] else "memory (no files)")
+    print(f"# cli: frames came through {route}; driver wall {drive_s:.1f} s "
+          f"(System built, {n} frames, shutdown, trajectory saved); "
+          f"frames/s over frames 5-{n - 1}: {(n - 5) / fs[5:].sum():.3f} "
+          f"(the driver's per-frame host times); frame p50 "
+          f"{np.percentile(fs, 50) * 1e3:.2f} ms, max {fs.max() * 1e3:.2f} "
+          f"ms; IMU initialized by frame {seen.get('init')}; keyframes "
+          f"{slam.keyframes_in_map()}, map points {slam.map_points_in_map()} "
+          f"(compressed {slam.compressed_map_points_in_map()}); kernel "
+          f"launches {launches}; peak device memory {peak:.1f} MiB")
+    _check(slam is seen.get("slam"), "the driver built another System")
+    _check(slam.state == "OK", f"final state {slam.state}")
+    _check(slam.imu_initialized, "imu initialized: False")
+    _check(launches == n, f"patch_gather launched {launches} times for {n} "
+           "frames")
+    ate = evaluate_ate.main([os.path.join(d, "gt.txt"), traj,
+                             "--max-dt", "0.05"])
+    print(f"# cli: ATE {ate:.4f} m through examples.evaluate_ate (bar 0.1 m)")
+    _check(ate < 0.1, f"ATE {ate:.4f} m")
+
+    snap = viewer.MapSnapshot.from_system(slam)
+    ply = os.path.join(d, "map.ply")
+    snap.save_ply(ply)
+    n_vert = int(snap.mp_valid.sum() + snap.kf_valid.sum())
+    with open(ply) as f:
+        body = f.read().splitlines()
+    drawn = sorted(os.listdir(frames_dir)) if os.path.isdir(frames_dir) \
+        else []
+    print(f"# cli: PLY of the card map with {n_vert} vertices "
+          f"({slam.map_points_in_map()} points, {slam.keyframes_in_map()} "
+          f"keyframes); frame PNGs "
+          + (f"{len(drawn)}: {drawn}" if have["matplotlib"]
+             else "not drawn (matplotlib absent)"))
+    _check(f"element vertex {n_vert}" in body
+           and len(body) == n_vert + 10, "PLY vertex count")
+    _check(n_vert == slam.map_points_in_map() + slam.keyframes_in_map(),
+           "PLY vertices != live points + keyframes")
+    if have["matplotlib"]:
+        _check(len(drawn) >= 1, "no frame PNG was drawn")
+
+    # the checkpoint: save, load into a fresh System, relocalize, track on
+    path = os.path.join(d, "map.npz")
+    t0 = time.perf_counter()
+    checkpoint.save_map(path, slam)
+    save_s = time.perf_counter() - t0
+    cfg2 = Settings(settings).system_config()
+    cfg2.use_imu = False
+    slam2 = System(cfg2, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.load_map(path, slam2)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    counts = [(s.keyframes_in_map(), s.map_points_in_map())
+              for s in (slam, slam2)]
+    print(f"# cli: checkpoint {os.path.getsize(path) / 2**20:.2f} MiB "
+          f"(md5 {checkpoint.md5_of_file(path)}), save_map {save_s:.2f} s, "
+          f"load_map {load_s:.2f} s; (keyframes, points) saved {counts[0]}, "
+          f"loaded {counts[1]}; state {slam2.state}")
+    _check(slam2.state == "LOST", f"state after load_map {slam2.state}")
+    _check(counts[0] == counts[1], "counts changed through the checkpoint")
+    _check(all(t.is_cuda for t in slam2.ms) and slam2.kf_db.rows.is_cuda,
+           "the loaded map is not on the card")
+    ord_loaded = slam2.kf_ord
+
+    world, K, _, _ = gen_fake_euroc.scene(W_, H_, geo["fx"], geo["fps"], n,
+                                          geo["seed"])
+    T_q = poses[CLI_RELOC_FRAME].copy()
+    T_q[:3, :3] = T_q[:3, :3] @ Rotation.from_euler(
+        "y", np.deg2rad(10)).as_matrix()
+    T_q[:3, 3] += T_q[:3, :3] @ np.array([0.3, 0.0, 0.0])
+    (q_l, q_r), = gen_fake_euroc.render(world, K, [T_q], geo["baseline"], W_,
+                                        H_)
+    orb.patch_gather_launches = 0
+    t_next = CLI_FRAMES / CLI_FPS + 1.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam2.track_stereo(q_l, q_r, t_next)
+    torch.cuda.synchronize()
+    reloc_s = time.perf_counter() - t0
+    # the map frame is the first camera's, the world frame here
+    err = float(np.linalg.norm(np.linalg.inv(slam2.current_pose())[:3, 3]
+                               - T_q[:3, 3]))
+    print(f"# cli: relocalization of frame {CLI_RELOC_FRAME}'s pose turned "
+          f"10 degrees and moved 0.3 m against the loaded map: state "
+          f"{slam2.state}, camera-centre error {err:.4f} m (bar 0.35 m), "
+          f"track_stereo {reloc_s * 1e3:.1f} ms (synchronised)")
+    _check(slam2.state == "OK", f"relocalization ended {slam2.state}")
+    _check(err < 0.35, f"relocalization error {err:.3f} m")
+    after = []
+    for j, i in enumerate(range(CLI_RELOC_FRAME + 1,
+                                CLI_RELOC_FRAME + 1 + CLI_AFTER)):
+        slam2.track_stereo(frames[i][0], frames[i][1],
+                           t_next + (j + 1) / CLI_FPS)
+        slam2._flush_pipeline()
+        after.append((i, slam2.state, float(np.linalg.norm(
+            np.linalg.inv(slam2.current_pose())[:3, 3] - poses[i][:3, 3]))))
+    torch.cuda.synchronize()
+    launches2 = orb.patch_gather_launches
+    print("# cli: after the relocalization (frame, state, camera-centre "
+          f"error m): {[(i, s, round(e, 4)) for i, s, e in after]}; "
+          f"keyframes made after the load {slam2.kf_ord - ord_loaded}; "
+          f"kernel launches {launches2}")
+    _check(all(s == "OK" for _, s, _ in after)
+           and not any(e.lost for e in slam2.trajectory),
+           f"tracking after the relocalization: {after}")
+    _check(launches2 == 1 + CLI_AFTER, f"patch_gather launched {launches2} "
+           f"times for {1 + CLI_AFTER} frames")
+    work.cleanup()
+    return launches + launches2
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-only", action="store_true",
@@ -1569,6 +1860,8 @@ def main():
     ap.add_argument("--sensors-only", action="store_true",
                     help="phases 1-3 and 9-12 only (no status line is "
                     "printed)")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="phases 1-3 and 13 only (no status line is printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
                     "builds its patch_gather.cu and times the two kernels "
@@ -1579,7 +1872,7 @@ def main():
     kern = phase_kernel(args.parent)
     by_phase = {}
     only = [k for k in ("kernel_only", "loop_only", "imu_only",
-                        "sensors_only") if getattr(args, k)]
+                        "sensors_only", "cli_only") if getattr(args, k)]
     part = bool(only)
     t_start = time.perf_counter()
     if not part:
@@ -1596,7 +1889,9 @@ def main():
         by_phase["rgbd"] = phase_rgbd()
         by_phase["fisheye"] = phase_fisheye()
         by_phase["mono_inertial"] = phase_mono_inertial()
-    print(f"# phases 4-12 took {time.perf_counter() - t_start:.1f} s")
+    if not part or only == ["cli_only"]:
+        by_phase["cli"] = phase_cli()
+    print(f"# phases 4-13 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "patch_gather", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",

@@ -18,7 +18,9 @@ Layer map:
   models/    fixed-capacity map pools (MapState) + numpy state conversion,
              the BoW vocabulary and keyframe database
   pipeline/  frontend, tracking, local mapping, sparsification, System
-  utils/     by-path loader for the reference's numpy-only utilities
+  utils/     settings files, checkpoints, dataset readers, the native
+             prefetch runtime, the viewer, rendered worlds, evaluation
+  examples/  the CLI drivers (`python -m ms_slam_tpu_torch.examples.<name>`)
 """
 
 __version__ = "0.1.0"

@@ -23,6 +23,7 @@ from ..ops.orb import pack_bits
 
 _FAR = 1 << 30
 _CHUNK = 8        # keyframes per batched Hamming product in place_scores
+_ROW_CHUNK = 4096  # descriptors per (rows, V) distance block in the fits
 
 
 def make_codebook(n_words: int = 2048, seed: int = 0xB0C4B,
@@ -36,19 +37,25 @@ def make_codebook(n_words: int = 2048, seed: int = 0xB0C4B,
 def refine_codebook(codebook: torch.Tensor, descs: torch.Tensor,
                     valid: torch.Tensor, n_iter: int = 4) -> torch.Tensor:
     """k-medians refinement: assign descriptors to words, recompute the
-    bitwise majority per word (`sums > 0`, so a tie gives bit 0)."""
+    bitwise majority per word (`sums > 0`, so a tie gives bit 0).
+
+    Descriptors go through in blocks of `_ROW_CHUNK` rows, so the distance
+    matrix never spans the whole reservoir; the argmins are per row and the
+    ±1 sums are small integers, so the result is the unblocked one bit for
+    bit."""
     V = codebook.shape[0]
-    bits = hamming.unpack_pm1(descs, torch.float32)         # (N,256) ±1
+    dev = descs.device
     for _ in range(n_iter):
-        d = hamming.hamming_matrix(descs, codebook)          # (N,V)
-        w = torch.argmin(torch.where(valid[:, None], d, _FAR), dim=1)
-        w = torch.where(valid, w, V)
-        sums = add_at_(torch.zeros((V + 1, 256), device=descs.device),
-                       w, bits)[:V]
-        counts = add_at_(torch.zeros(V + 1, device=descs.device), w,
-                         1.0)[:V]
-        codebook = torch.where((counts > 0)[:, None], pack_bits(sums > 0),
-                               codebook)
+        sums = torch.zeros((V + 1, 256), device=dev)
+        counts = torch.zeros(V + 1, device=dev)
+        for s in range(0, descs.shape[0], _ROW_CHUNK):
+            dc, vc = descs[s:s + _ROW_CHUNK], valid[s:s + _ROW_CHUNK]
+            w = torch.argmin(hamming.hamming_matrix(dc, codebook), dim=1)
+            w = torch.where(vc, w, V)
+            add_at_(sums, w, hamming.unpack_pm1(dc, torch.float32))
+            add_at_(counts, w, 1.0)
+        codebook = torch.where((counts[:V] > 0)[:, None],
+                               pack_bits(sums[:V] > 0), codebook)
     return codebook
 
 
@@ -56,24 +63,25 @@ def bow_vectors(codebook: torch.Tensor, descs: torch.Tensor,
                 valid: torch.Tensor, soft: bool = True) -> torch.Tensor:
     """(B,V) normalised word histograms for (B,N,8) descriptor sets.
 
-    soft: each descriptor also votes 0.5 for its second-nearest word."""
+    soft: each descriptor also votes 0.5 for its second-nearest word.
+    Blocked over rows as `refine_codebook`; the votes are multiples of 0.5,
+    so the histograms are the unblocked ones exactly."""
     V = codebook.shape[0]
     B, N = valid.shape
     dev = descs.device
-    d = hamming.hamming_matrix(descs.reshape(B * N, 8), codebook)
-    d = torch.where(valid.reshape(-1)[:, None], d, _FAR)
-    base = (torch.arange(B, device=dev) * (V + 1))[:, None]
-
-    def vote(w, weight):
-        wm = torch.where(valid, w.reshape(B, N), V) + base
-        return add_at_(torch.zeros(B * (V + 1), device=dev), wm,
-                       weight).reshape(B, V + 1)[:, :V]
-
-    w1 = torch.argmin(d, dim=1)
-    hist = vote(w1, 1.0)
-    if soft:
-        d[torch.arange(B * N, device=dev), w1] = _FAR
-        hist = hist + vote(torch.argmin(d, dim=1), 0.5)
+    flat, vflat = descs.reshape(B * N, 8), valid.reshape(-1)
+    base = torch.arange(B, device=dev).repeat_interleave(N) * (V + 1)
+    hist = torch.zeros(B * (V + 1), device=dev)
+    for s in range(0, B * N, _ROW_CHUNK):
+        d = hamming.hamming_matrix(flat[s:s + _ROW_CHUNK], codebook)
+        vc, bc = vflat[s:s + _ROW_CHUNK], base[s:s + _ROW_CHUNK]
+        w1 = torch.argmin(d, dim=1)
+        add_at_(hist, torch.where(vc, w1, V) + bc, 1.0)
+        if soft:
+            d[torch.arange(d.shape[0], device=dev), w1] = _FAR
+            add_at_(hist, torch.where(vc, torch.argmin(d, dim=1), V) + bc,
+                    0.5)
+    hist = hist.reshape(B, V + 1)[:, :V]
     n = torch.clamp(hist.sum(1, keepdim=True), min=1.0)
     return hist / n
 

@@ -39,12 +39,16 @@ scale and rescales the map (`_apply_map_scale`).
 `activate_localization_mode` freezes the map: tracking goes on, no keyframe
 is created, until `deactivate_localization_mode`.
 
+With `frame_draw_every=N` every N-th completed stereo frame is drawn with
+its keypoints and tracked matches into `frame_draw_dir`
+(`utils/viewer.draw_frame`); only drawn frames fetch their features.
+
 The reference's tunnel workarounds (device-scalar cache, upload thread,
-batched fetches with `_complete_batch`) and its frame-overlay drawing are
-not carried over.
+batched fetches with `_complete_batch`) are not carried over.
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 from collections import deque
@@ -60,6 +64,7 @@ from ..ops import imu as imu_ops
 from ..ops import inertial_opt, matching, twoview
 from ..ops.lie import rot_to_quat
 from ..ops.orb import OrbConfig
+from ..utils import viewer
 from . import mapping_ops as mo
 from . import tracking_ops as to
 from .frontend import (Calib, FrameData, process_mono, process_rgbd,
@@ -120,6 +125,11 @@ class SystemConfig:
     # localization-only mode (ref System::ActivateLocalizationMode): track
     # against the frozen map, no new keyframes
     localization_only: bool = False
+    # the reference system's frame drawer: a keypoint/track overlay PNG every
+    # N completed stereo frames into frame_draw_dir (0 = off, which keeps
+    # the per-frame path free of fetches)
+    frame_draw_every: int = 0
+    frame_draw_dir: str = "frames"
     # RECENTLY_LOST grace window before LOST, in seconds (ref
     # time_recently_lost, src/Tracking.cc:1947-2018)
     t_recently_lost: float = 5.0
@@ -221,6 +231,7 @@ class System:
         self.trajectory: list[TrajectoryEntry] = []
         self.timing: dict[str, list] = {}
         self._inflight: deque[InFlight] = deque()
+        self._draw_images: dict[int, np.ndarray] = {}
         self._Rt_dev = None
         self._Rt_dev2 = None
         self._has_vel = False
@@ -290,6 +301,8 @@ class System:
         del next_images
         self.frame_id += 1
         t0 = time.perf_counter()
+        if self.cfg.frame_draw_every:
+            self._draw_images[self.frame_id] = np.asarray(img_l)
         frame = self._dispatch_frontend(img_l, img_r)
         self._tic(t0, "frontend")
         return self._advance(frame, timestamp)
@@ -877,8 +890,28 @@ class System:
         if ((c1a or (c1b and c2) or c_imu) and n_inliers > 15
                 and not cfg.localization_only):
             self._create_keyframe(fl, R_np, t_np)
+        self._maybe_draw_frame(fl)
         self._record(fl.timestamp, lost=False, frame_id=fl.frame_id)
         self._prev_completed_ts = fl.timestamp
+
+    def _maybe_draw_frame(self, fl: InFlight):
+        """The frame drawer (ref FrameDrawer::Update + DrawFrame): every
+        cfg.frame_draw_every completed frames, the keypoint/track overlay
+        PNG. Only a drawn frame fetches its features from the device."""
+        every = self.cfg.frame_draw_every
+        if not every:
+            return
+        img = self._draw_images.pop(fl.frame_id, None)
+        if img is None or fl.frame_id % every:
+            return
+        os.makedirs(self.cfg.frame_draw_dir, exist_ok=True)
+        viewer.draw_frame(
+            img, fl.frame.feats.xy.cpu().numpy(),
+            fl.frame.feats.valid.cpu().numpy(),
+            fl.out.matched_mp.cpu().numpy() >= 0,
+            os.path.join(self.cfg.frame_draw_dir,
+                         f"frame_{fl.frame_id:06d}.png"),
+            state=str(self.state))
 
     def _adopt_reloc(self, rl: "to.TrackOut", timestamp: float,
                      frame_id: int):
@@ -898,6 +931,7 @@ class System:
     def _on_track_failure(self, fl: InFlight):
         """Tracking failed for frame fl: relocalize now, or enter the
         RECENTLY_LOST grace window (ref src/Tracking.cc:1947-2018)."""
+        self._draw_images.pop(fl.frame_id, None)
         self.vel = None
         self._has_vel = False
         rl = self._relocalize(fl.frame)
@@ -929,6 +963,7 @@ class System:
         forward, and start a fresh Atlas map when the loss is
         irrecoverable."""
         fid = self.frame_id if frame_id is None else frame_id
+        self._draw_images.pop(fid, None)
         rl = self._relocalize(frame)
         if rl is not None:
             self.vel = None

@@ -1,3 +1,5 @@
-"""Numpy-only host utilities: rendered test worlds (`synth`) and trajectory
-evaluation (`evaluate`). Both are the port's own copies of the reference's
-modules of the same names."""
+"""Host utilities of the port, each its own copy or port of the reference's
+module of the same name: settings files (`config`), map checkpoints
+(`checkpoint`), dataset readers (`datasets`) on the native decode/rectify
+prefetch runtime (`native`), the headless viewer (`viewer`), rendered test
+worlds (`synth`) and trajectory evaluation (`evaluate`)."""

@@ -420,3 +420,92 @@ def test_twoview_reconstruct_card_against_cpu():
     assert (card.inlier.cpu() != cpu.inlier).float().mean() <= 0.01
     ang_gt = np.arccos(np.clip((np.trace(Rg @ R2.T) - 1) / 2, -1, 1))
     assert np.degrees(ang_gt) < 1.0
+
+
+def _saved_map(path):
+    """A checkpoint written from a CPU System whose map holds random live
+    keyframes, points and observations (no frame is tracked)."""
+    from ms_slam_tpu_torch.models.map_state import (MapConfig,
+                                                    map_state_from_numpy,
+                                                    map_state_to_numpy)
+    from ms_slam_tpu_torch.ops.orb import OrbConfig
+    from ms_slam_tpu_torch.pipeline.frontend import Calib
+    from ms_slam_tpu_torch.pipeline.system import System, SystemConfig
+    from ms_slam_tpu_torch.utils import checkpoint
+    rng = np.random.default_rng(8)
+    K, M, N = 16, 512, 64
+    cfg = SystemConfig(
+        calib=Calib(model=0, params=(260.0, 260.0, 160.0, 120.0), bf=39.0,
+                    width=320, height=240),
+        orb=OrbConfig(n_features=N, n_levels=4),
+        map=MapConfig(max_kf=K, max_mp=M, n_feat=N, local_mp_cap=256),
+        sparsify=True)
+
+    def make(device):
+        return System(cfg, device=device)
+    slam = make("cpu")
+    d = map_state_to_numpy(slam.ms)
+    d["kf_valid"][:10] = True
+    d["kf_t"][:10] = rng.normal(size=(10, 3))
+    d["kp_valid"][:10] = rng.random((10, N)) < 0.8
+    d["kp_xy"][:10] = rng.uniform(0, 240, (10, N, 2))
+    d["kp_desc"][:10] = rng.integers(0, 2 ** 32, (10, N, 8), dtype=np.uint32)
+    d["mp_valid"][:300] = True
+    d["mp_pos"][:300] = rng.normal(size=(300, 3))
+    d["mp_sparsified"][:300] = rng.random(300) < 0.5
+    d["obs_mp"][:10] = np.where(d["kp_valid"][:10],
+                                rng.integers(0, 300, (10, N)), -1)
+    slam.ms = map_state_from_numpy(d)
+    slam.n_kf, slam.n_mp, slam.kf_ord = 10, 300, 10
+    slam.kf_order = list(range(10))
+    slam.kf_db.rows[:10] = torch.from_numpy(
+        rng.random((10, slam.kf_db.rows.shape[1])).astype(np.float32))
+    slam.kf_db.present[[2, 5]] = True
+    checkpoint.save_map(path, slam)
+    return make
+
+
+@pytest.mark.cuda
+def test_load_map_on_card_equals_cpu(tmp_path):
+    """utils.checkpoint.load_map onto the card: the map lands on the card
+    and equals the CPU load field for field, dtype for dtype; the database
+    rows follow the database onto the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.models.map_state import map_state_to_numpy
+    from ms_slam_tpu_torch.utils import checkpoint
+    path = str(tmp_path / "map.npz")
+    make = _saved_map(path)
+    cpu, card = make("cpu"), make("cuda")
+    checkpoint.load_map(path, cpu)
+    checkpoint.load_map(path, card)
+    assert all(t.is_cuda for t in card.ms) and card.kf_db.rows.is_cuda
+    a, b = map_state_to_numpy(card.ms), map_state_to_numpy(cpu.ms)
+    for k in b:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_array_equal(card.kf_db.rows.cpu().numpy(),
+                                  cpu.kf_db.rows.numpy())
+    assert card.state == cpu.state == "LOST"
+    assert card.map_points_in_map() == cpu.map_points_in_map() == 300
+    assert card.compressed_map_points_in_map() == \
+        cpu.compressed_map_points_in_map()
+
+
+@pytest.mark.cuda
+def test_map_snapshot_from_card_map(tmp_path):
+    """utils.viewer.MapSnapshot reads a map on the card (explicit host
+    copies) and writes the PLY the CPU map gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ms_slam_tpu_torch.utils import checkpoint, viewer
+    path = str(tmp_path / "map.npz")
+    make = _saved_map(path)
+    for device in ("cpu", "cuda"):
+        slam = make(device)
+        checkpoint.load_map(path, slam)
+        snap = viewer.MapSnapshot.from_system(slam)
+        snap.save_ply(str(tmp_path / f"{device}.ply"))
+    assert int(snap.mp_valid.sum() + snap.kf_valid.sum()) == 310
+    assert (tmp_path / "cuda.ply").read_bytes() == \
+        (tmp_path / "cpu.ply").read_bytes()

@@ -37,6 +37,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_runs_no_file_of_the_reference():
+    """Importing every module of the port (the host utilities and the CLI
+    drivers included) loads no jax, no module of the reference, and none of
+    the packages the GPU machine may lack (yaml, cv2, matplotlib: the port
+    reads its settings itself and imports cv2 and matplotlib only where an
+    image is read, written or drawn)."""
     code = (
         "import pkgutil, importlib, os, sys\n"
         "import ms_slam_tpu_torch as p\n"
@@ -44,11 +49,18 @@ def test_port_runs_no_file_of_the_reference():
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "from ms_slam_tpu_torch.utils import synth, evaluate\n"
-        "assert len(mods) >= 17, mods\n"
+        "need = ['utils.config', 'utils.checkpoint', 'utils.datasets', "
+        "'utils.native', 'utils.viewer', 'examples.stereo_kitti', "
+        "'examples.stereo_euroc', 'examples.stereo_inertial_euroc', "
+        "'examples.stereo_inertial_4season', 'examples.evaluate_ate', "
+        "'examples.gen_fake_euroc']\n"
+        "missing = [n for n in need if 'ms_slam_tpu_torch.' + n not in mods]\n"
+        "assert not missing and len(mods) >= 29, (missing, mods)\n"
         "ref = os.path.join(os.path.dirname(os.path.dirname("
         "os.path.abspath(p.__file__))), 'ms_slam_tpu') + os.sep\n"
         "bad = [n for n, m in list(sys.modules.items())\n"
-        "       if n.split('.')[0] in ('jax', 'jaxlib', 'ms_slam_tpu')\n"
+        "       if n.split('.')[0] in ('jax', 'jaxlib', 'ms_slam_tpu', "
+        "'yaml', 'cv2', 'matplotlib')\n"
         "       or os.path.abspath(getattr(m, '__file__', None) or '')"
         ".startswith(ref)]\n"
         "assert not bad, bad\n"
