@@ -17,7 +17,9 @@ Layer map:
              sparsification selector, PnP
   models/    fixed-capacity map pools (MapState) + numpy state conversion,
              the BoW vocabulary and keyframe database
-  pipeline/  frontend, tracking, local mapping, sparsification, System
+  pipeline/  frontend, tracking, local mapping, sparsification, loop
+             closing, System
+  parallel/  the global BA sharded over a mesh of devices (dist_ba)
   utils/     settings files, checkpoints, dataset readers, the native
              prefetch runtime, the viewer, rendered worlds, evaluation
   examples/  the CLI drivers (`python -m ms_slam_tpu_torch.examples.<name>`)

@@ -11,7 +11,9 @@ consecutive verified keyframes. The correction rigidly moves the current
 covisible window and its points, fuses duplicates, optimizes the essential
 graph (`ops/pose_graph.py`) with the matched keyframe fixed, re-anchors
 every map point by its reference keyframe's pose change and runs the
-alternating global BA.
+global BA: the alternating one, or the one sharded over a mesh of devices
+(`parallel/dist_ba.py`) when `SystemConfig.dist_ba_devices` asks for it and
+the System's device offers that many.
 
 What differs from the reference, by need:
 
@@ -45,6 +47,7 @@ from ..models import map_state as M
 from ..models.vocab import KeyFrameDatabase, tfidf_scores
 from ..ops import lie, matching, pose_graph, sim3
 from ..ops.indexing import set_at_, top_k
+from ..parallel import dist_ba
 from . import mapping_ops as mo
 from .frontend import Calib
 
@@ -372,6 +375,7 @@ class LoopCloser:
         self.th_opt = max(int(round(50 * f)), 14)
         self.th_rep = max(int(round(100 * f)), 22)
         self._pending = None
+        self._ba_mesh = None            # the sharded global BA's, once built
         # the pose graph differentiates through torch.func, whose first use
         # in a process takes seconds on the host (8.4 s measured beside an
         # H100): pay that here, on a two-pose graph, not inside the frame
@@ -673,6 +677,22 @@ class LoopCloser:
         e_w.append(20.0)
         return e_i, e_j, e_w, kf_valid
 
+    def _global_ba_mesh(self):
+        """The mesh of the sharded global BA, built once, or None for the
+        local solve: SystemConfig.dist_ba_devices > 1 asks for one, and the
+        System's device must offer that many devices (a CPU System up to 8
+        shards, a card System one per card, as the reference counts
+        jax.devices())."""
+        n_dist = self.sys.cfg.dist_ba_devices
+        if n_dist <= 1:
+            return None
+        offered = dist_ba.devices_offered(self.sys.device)
+        if len(offered) < n_dist:
+            return None
+        if self._ba_mesh is None:
+            self._ba_mesh = dist_ba.make_mesh(n_dist, offered)
+        return self._ba_mesh
+
     def _fuse_and_optimize(self, cur: int, match: int, weld: bool = False):
         sys = self.sys
         dev = sys.device
@@ -735,9 +755,16 @@ class LoopCloser:
                 n_iters=10)
             sys.ms = _reanchor_points(ms._replace(kf_R=res.R, kf_t=res.t),
                                       old_R, old_t)
-        # global refinement (ref RunGlobalBundleAdjustment): alternating
-        # whole-map BA anchored at the matched keyframe
-        sys.ms = mo.global_ba(sys.ms, sys.calib, sys.orb, match, n_sweeps=2)
+        # global refinement (ref RunGlobalBundleAdjustment), anchored at the
+        # matched keyframe: sharded over the mesh where the System asks for
+        # one and its device offers it, else the alternating whole-map BA
+        mesh = self._global_ba_mesh()
+        if mesh is not None:
+            sys.ms = dist_ba.dist_global_ba(sys.ms, sys.calib, sys.orb, match,
+                                            mesh, n_iters=8)
+        else:
+            sys.ms = mo.global_ba(sys.ms, sys.calib, sys.orb, match,
+                                  n_sweeps=2)
         if self._inertial_ready():
             # then poses, velocities and biases against the preintegration
             # chain (ref Optimizer::FullInertialBA via LoopClosing.cc:2228)

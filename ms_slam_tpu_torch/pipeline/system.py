@@ -106,6 +106,11 @@ class SystemConfig:
     # inertial yaw-only loop gate tolerances (ref LoopClosing.cc:243-256)
     loop_pitchroll_tol: float = 0.008
     loop_yaw_tol: float = 0.349
+    # shard the post-loop global BA over this many devices (0/1 = local
+    # solve; the scale-out path: the factor table split over the mesh, the
+    # Schur reduction summed over the shards); taken only where the
+    # System's device offers that many (parallel.dist_ba.devices_offered)
+    dist_ba_devices: int = 0
     # inertial mode: IMU-aided prediction and the staged gravity/bias
     # initialization (ref LocalMapping::InitializeIMU schedule)
     use_imu: bool = False

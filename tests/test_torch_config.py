@@ -80,9 +80,8 @@ def test_built_configs_equal_reference(path):
     assert _same(_fields(ts.system_config(64, 4096, 1024).map),
                  _fields(js.system_config(64, 4096, 1024).map))
     tf, jf = _fields(tc), _fields(jc)
-    # the reference's SystemConfig has one field the port does not port yet
-    # (dist_ba_devices, multi-device BA); every other field is compared
-    assert set(jf) - set(tf) == {"dist_ba_devices"}
+    # the two SystemConfigs have the same fields, each compared below
+    assert set(jf) == set(tf)
     for name in tf:
         a, b = tf[name], jf[name]
         if name in ("calib", "orb", "map"):
