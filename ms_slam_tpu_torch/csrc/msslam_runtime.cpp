@@ -166,9 +166,14 @@ struct Pipeline {
       if (idx >= n_frames || stop.load()) return;
       const int slot = idx % depth;
       {
+        // The slot is frame idx's only once frame idx - depth has been
+        // consumed: a worker holding idx + depth must not take it first,
+        // or the consumer waits for idx in a slot that never gets it.
+        // next_consume is written under mu, so it is read under mu.
         std::unique_lock<std::mutex> lk(mu);
         cv_free.wait(lk, [&] {
-          return stop.load() || ready[slot].load() == -1;
+          return stop.load() ||
+                 (ready[slot].load() == -1 && idx < next_consume + depth);
         });
         if (stop.load()) return;
         ready[slot].store(-2);  // claimed

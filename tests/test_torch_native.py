@@ -6,7 +6,10 @@ against cv2 and against the reference's.
 - remap: bit-exact against the reference's (same code); within 1 grey level
   of cv2.remap on interior pixels (cv2 interpolates in fixed point);
 - PrefetchPipeline: in order, bit-exact against cv2 (decode only) and
-  against the reference's pipeline (with rectification maps too);
+  against the reference's pipeline (with rectification maps too); it never
+  deadlocks, with a consumer that only takes frames (the reference's copy
+  can: a worker holding frame i + depth may claim frame i's slot first, so
+  its pipeline is read here with one worker, which cannot overtake itself);
 - the readers KittiOdometry, EurocStereo (with rect_from_settings and the
   IMU rows) and TumRgbd yield the same timestamps, frames and IMU rows as
   the reference's on fabricated small directories, with prefetch on and off
@@ -17,6 +20,7 @@ against cv2 and against the reference's.
 """
 import os
 import sys
+import threading
 
 import cv2
 import numpy as np
@@ -97,7 +101,7 @@ def test_pipeline_order_and_content(tmp_path, rng):
     pipe = native.PrefetchPipeline(pl, pr, width=80, height=60, depth=4,
                                    n_workers=3)
     jpipe = jnative.PrefetchPipeline(pl, pr, width=80, height=60, depth=4,
-                                     n_workers=3)
+                                     n_workers=1)
     n = 0
     for (l, r), (jl, jr), a, b in zip(pipe, jpipe, pl, pr):
         np.testing.assert_array_equal(l, cv2.imread(a, cv2.IMREAD_GRAYSCALE))
@@ -114,13 +118,40 @@ def test_pipeline_order_and_content(tmp_path, rng):
     mono = list(native.PrefetchPipeline(pl, width=80, height=60,
                                         rect_maps=maps))
     jmono = list(jnative.PrefetchPipeline(pl, width=80, height=60,
-                                          rect_maps=maps))
+                                          rect_maps=maps, n_workers=1))
     assert len(mono) == 12
     for a, b in zip(mono, jmono):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         native.PrefetchPipeline(pl, width=80, height=60,
                                 rect_maps=maps[:, :-1])
+
+
+@pytest.mark.parametrize("depth,n_workers", [(1, 4), (2, 4), (4, 3), (8, 4)])
+def test_pipeline_never_deadlocks(tmp_path, rng, depth, n_workers):
+    """A consumer that only takes frames outpaces decoding, which is when a
+    worker holding frame i + depth could claim frame i's slot before frame
+    i's worker wakes. Each trial runs in a daemon thread (ctypes releases
+    the GIL) and must deliver all 12 frames within 10 s."""
+    pl = _pngs(str(tmp_path / "l"), 12, 60, 80, rng)
+    pr = _pngs(str(tmp_path / "r"), 12, 60, 80, rng)
+    first = [cv2.imread(p, cv2.IMREAD_GRAYSCALE) for p in (pl[0], pr[0])]
+    for trial in range(20):
+        got = []
+
+        def consume():
+            pipe = native.PrefetchPipeline(pl, pr, width=80, height=60,
+                                           depth=depth, n_workers=n_workers)
+            got.extend(pipe)
+            pipe.close()
+        t = threading.Thread(target=consume, daemon=True)
+        t.start()
+        t.join(10.0)
+        assert not t.is_alive(), (
+            f"trial {trial}: stuck after {len(got)} of 12 frames")
+        assert len(got) == 12
+        np.testing.assert_array_equal(got[0][0], first[0])
+        np.testing.assert_array_equal(got[0][1], first[1])
 
 
 def test_vmrss():
