@@ -15,8 +15,10 @@ Phases (any failure exits non-zero; there is no CPU path):
      cold) beside its bound (bytes over 3.35 TB/s), the plain version and
      the nearest single PyTorch call; then the same check and times at the
      monocular / RGB-D shape (one 384x5888 canvas, 2048 keypoints), the
-     stereo-fisheye shape (two 512x2560 canvases, 2 x 1024 keypoints) and
-     the EuRoC shape of phase 13 (two 480x3584 canvases, 2 x 1280);
+     stereo-fisheye shape (two 512x2560 canvases, 2 x 1024 keypoints), the
+     EuRoC shape of phase 13 (two 480x3584 canvases, 2 x 1280) and the
+     padded level stack of phase 18's stack extractor (2 x 8 planes of
+     384x1248, 2 x 2048 keypoints, each keypoint's image index its plane);
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -89,7 +91,14 @@ Phases (any failure exits non-zero; there is no CPU path):
  17. the memory A/B (phase 4's frames with sparsification on and off) and
      pool recycling (the same frames, pools the run overflows)
      (phase_memory); phases 16 and 17 run in two more processes beside
-     phase 15, on the same card;
+     phase 15, on the same card (phase 18 after 17 in its process);
+ 18. bench.py's software pipeline (bench.py:35,92-106): phase 4's frames
+     and configuration with MSSLAM_PIPELINE_DEPTH=4 (three frames in
+     flight, completed two at a time) and next_images on every frame, so
+     each frame's frontend is prefetched on a side stream while the frames
+     before it complete; then the padded-stack extractor and its stereo
+     matcher at full width on frame 0 (phase_pipeline); run after phase 17
+     in its process;
   then a JSON line of per-kernel results and the final JSON status line.
 Every phase from 4 on checks the kernel's launches in its run: one a frame
 (none in phase 14, which renders no frame).
@@ -98,7 +107,9 @@ Options, for work on one part: --kernel-only stops after phase 3,
 --loop-only runs phases 1-3, 7 and 14, --imu-only phases 1-3 and 8,
 --sensors-only phases 1-3 and 9-12, --cli-only phases 1-3 and 13,
 --atlas-only phases 1-3 and 15, --imu-loop-only phases 1-3 and 16,
---memory-only phases 1-3 and 17; none of them prints a status line.
+--memory-only phases 1-3 and 17, --pipeline-only phases 1-3 and 18 (and
+beside it the same run at depth 2, for a comparison in one call); none of
+them prints a status line.
 --parent DIR also builds the patch_gather.cu of another checkout of this
 repository (same C interface) and times the two kernels in turns in
 phase 3: parent, this, this, parent.
@@ -206,22 +217,25 @@ def _cold_ms(fn, flush, n=50, warmup=3):
 
 
 def _kernel_inputs(B=2, Hc=H, Wc=5888, n=2048):
-    """Patch-gather inputs (B canvases of Hc x Wc, n keypoints per image),
-    with centres beyond all four clip edges. The defaults are the stereo
-    main path's shapes."""
+    """Patch-gather inputs (B canvases of Hc x Wc, n keypoints per image, or
+    n[b] in image b), with centres beyond all four clip edges. The defaults
+    are the stereo main path's shapes."""
     dev = torch.device("cuda")
+    counts = torch.as_tensor(n, device=dev).expand(B)
+    n_all = int(counts.sum())
     g = torch.Generator(device=dev).manual_seed(0)
     canvas = torch.rand((B, Hc, Wc), generator=g, device=dev) * 255.0
-    ys = torch.randint(-8, Hc + 8, (B * n,), generator=g, device=dev,
+    ys = torch.randint(-8, Hc + 8, (n_all,), generator=g, device=dev,
                        dtype=torch.int32)
-    xs = torch.randint(-8, Wc + 8, (B * n,), generator=g, device=dev,
+    xs = torch.randint(-8, Wc + 8, (n_all,), generator=g, device=dev,
                        dtype=torch.int32)
     # explicit corners and edges: top, bottom, left, right
     ys[:8] = torch.tensor([0, Hc - 1, 5, Hc + 3, 10, 200, -3, 100],
                           dtype=torch.int32)
     xs[:8] = torch.tensor([0, Wc - 1, 3000, 10, -5, Wc + 2, 40, Wc - 3],
                           dtype=torch.int32)
-    bi = torch.arange(B, device=dev, dtype=torch.int32).repeat_interleave(n)
+    bi = torch.arange(B, device=dev, dtype=torch.int32).repeat_interleave(
+        counts)
     return canvas, bi, ys, xs
 
 
@@ -271,6 +285,8 @@ def phase_kernel(parent_dir=None):
     _, Wc_euroc, _ = orb.canvas_layout(480, 752, orb.OrbConfig(
         n_features=1280, n_levels=8))
     _check(Wc_euroc == 3584, f"EuRoC canvas width {Wc_euroc} != 3584")
+    _check(list(STACK_QUOTAS[:8]) == orb.OrbConfig(
+        n_features=2048, n_levels=8).level_quotas(), "stack quotas")
     canvas, bi, ys, xs = _kernel_inputs()
     B, Hc, Wc = canvas.shape
     n = bi.shape[0]
@@ -366,12 +382,16 @@ def _library_ms(canvas, bi, ys, xs, ref, name):
 
 # the kernel's shapes on the monocular / RGB-D path (one 1248x384 image,
 # 2048 keypoints), on the stereo-fisheye path (two 512x512 images, 1024
-# keypoints each) and on the CLI path of phase 13 (two 752x480 EuRoC images,
-# configs/EuRoC-Inertial.yaml's 1200 features rounded up to 1280): (B,
-# canvas height, canvas width, keypoints per image)
+# keypoints each), on the CLI path of phase 13 (two 752x480 EuRoC images,
+# configs/EuRoC-Inertial.yaml's 1200 features rounded up to 1280) and in
+# phase 18's stack extractor (two 1248x384 images' 8 levels as 16 full-size
+# planes; each level's quota of 2048 keypoints in its plane): (B, canvas
+# height, canvas width, keypoints per image or per plane)
+STACK_QUOTAS = (445, 371, 309, 257, 214, 179, 149, 124) * 2
 SENSOR_KERNEL_SHAPES = (("mono_rgbd", (1, 384, 5888, 2048)),
                         ("fisheye", (2, 512, 2560, 1024)),
-                        ("euroc", (2, 480, 3584, 1280)))
+                        ("euroc", (2, 480, 3584, 1280)),
+                        ("stack", (16, 384, 1248, STACK_QUOTAS)))
 
 
 def _kernel_at_shape(lib, name, B, Hc, Wc, n):
@@ -383,7 +403,8 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n):
     out = orb.extract_patches_canvas(canvas, bi, ys, xs)
     ref = orb.extract_patches_canvas_plain(canvas, bi, ys, xs)
     torch.cuda.synchronize()
-    _check(out.shape == ref.shape == (B * n, 45, 45), f"{name}: patch shape")
+    n_all = bi.shape[0]
+    _check(out.shape == ref.shape == (n_all, 45, 45), f"{name}: patch shape")
     err = float((out - ref).abs().max())
     _check(torch.equal(out, ref), f"{name}: kernel != plain (max abs err "
            f"{err})")
@@ -399,13 +420,14 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n):
     plain_ms = _run_ms(lambda: orb.extract_patches_canvas_plain(
         canvas, bi, ys, xs), n=50, warmup=5)
     library_ms = _library_ms(canvas, bi, ys, xs, ref, name)
-    print(f"# patch_gather {B}x{Hc}x{Wc}, {n} kp/img ({name}): bit-exact vs "
+    print(f"# patch_gather {B}x{Hc}x{Wc}, {n_all} keypoints ({name}): "
+          f"bit-exact vs "
           f"plain. Bound {bound_ms:.5f} ms ({n_bytes} bytes at 3.35 TB/s). "
           f"Kernel alone, L2 warm {ms:.4f} ms = {100 * bound_ms / ms:.1f}% "
           f"of the bound; L2 cold {ms_cold:.4f} ms = "
           f"{100 * bound_ms / ms_cold:.1f}%; plain version {plain_ms:.4f} "
           f"ms; nearest library call {library_ms:.4f} ms")
-    return {"shape": name, "canvas": [B, Hc, Wc], "keypoints": B * n,
+    return {"shape": name, "canvas": [B, Hc, Wc], "keypoints": n_all,
             "max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "bytes": n_bytes}
@@ -642,9 +664,13 @@ def phase_main_path():
     _check(mem["reduction"] > 0, f"reduction {mem['reduction']}")
     _check(n_comp > 0, "no compressed map point after shutdown()")
     ok_frames = sum(not e.lost for e in slam.trajectory)
+    p4 = {"fps": len(steady) / steady.sum(),
+          "p50": np.percentile(frame_s, 50) * 1e3,
+          "p95": np.percentile(frame_s, 95) * 1e3,
+          "stages": _pipeline_stages(slam)}
     return {"launches": launches, "slam": slam, "world": world, "K": K,
             "poses": poses, "window": windows_seen[0],
-            "ab_on": _ab_arm(slam, ok_frames)}
+            "ab_on": _ab_arm(slam, ok_frames), "p4": p4}
 
 
 def phase_relocalize(run):
@@ -2768,6 +2794,211 @@ def phase_memory(on=None, corridor=None):
 
 
 
+PIPELINE_STAGES = ("prefetch_dispatch", "stats_fetch", "complete")
+PIPELINE_VARS = ("MSSLAM_PIPELINE_DEPTH", "MSSLAM_FETCH_BATCH",
+                 "MSSLAM_SYNC_PREFETCH", "MSSLAM_OBS_EVERY_FRAME")
+
+
+def _pipeline_stages(slam):
+    """(calls, p50 ms, total s) of the System's own pipeline stage timers
+    (host clock, no device sync)."""
+    out = {}
+    for k in PIPELINE_STAGES:
+        v = np.asarray(slam.timing.get(k, [0.0]))
+        out[k] = (len(slam.timing.get(k, [])), float(np.median(v)) * 1e3,
+                  float(v.sum()))
+    return out
+
+
+def _pipeline_system(cfg, depth: int):
+    """A System made with MSSLAM_PIPELINE_DEPTH=depth (the fetch batch its
+    default, max(1, depth - 2)) and no other pipeline variable set."""
+    import os
+
+    from ms_slam_tpu_torch.pipeline.system import System
+    saved = {k: os.environ.pop(k, None) for k in PIPELINE_VARS}
+    os.environ["MSSLAM_PIPELINE_DEPTH"] = str(depth)
+    try:
+        slam = System(cfg, device="cuda")
+    finally:
+        os.environ.pop("MSSLAM_PIPELINE_DEPTH")
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    _check(slam._pipeline_depth == depth
+           and slam._fetch_batch == max(1, depth - 2), "pipeline settings")
+    return slam
+
+
+def _drive_pipelined(frames, poses, depth, card):
+    """Phase 4's frames through a System at the given depth with next_images
+    on every frame, as bench.py:92-106 drives it: no device sync between
+    calls. Frames/s over frames 10-99 from the calls' start times; p50 and
+    p95 of the calls' wall time."""
+    from ms_slam_tpu_torch.ops import orb
+    from ms_slam_tpu_torch.utils import evaluate
+    slam = _pipeline_system(_main_cfg(), depth)
+    torch.cuda.synchronize()
+    orb.patch_gather_launches = 0
+    starts, walls = [], []
+    n = len(frames)
+    for i in range(n):
+        nxt = frames[i + 1] if i + 1 < n else None
+        t0 = time.perf_counter()
+        slam.track_stereo(frames[i][0], frames[i][1], 0.1 * i,
+                          next_images=nxt)
+        starts.append(t0)
+        walls.append(time.perf_counter() - t0)
+    slam.shutdown()
+    torch.cuda.synchronize()
+    launches = orb.patch_gather_launches
+    gt_by_ts = {round(0.1 * i, 6): T for i, T in enumerate(poses)}
+    rows = slam.poses_wc()
+    est = np.stack([Twc[:3, 3] for _, Twc in rows])
+    gt = np.stack([gt_by_ts[round(ts, 6)][:3, 3] for ts, _ in rows])
+    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+    mem = slam.memory_stats()
+    out = {"slam": slam, "launches": launches,
+           "fps": (n - 11) / (starts[-1] - starts[10]),
+           "p50": np.percentile(walls, 50) * 1e3,
+           "p95": np.percentile(walls, 95) * 1e3,
+           "ok": sum(not e.lost for e in slam.trajectory),
+           "n_rec": len(slam.trajectory), "ate": evaluate.ate_rmse(est, gt),
+           "path": path, "reduction": mem["reduction"],
+           "compressed": slam.compressed_map_points_in_map(),
+           "hits": slam.prefetch_hits,
+           "fetches": len(slam.timing.get("stats_fetch", [])),
+           "stages": _pipeline_stages(slam),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    st = "; ".join(f"{k} n={c} p50 {p:.3f} ms total {t:.3f} s"
+                   for k, (c, p, t) in out["stages"].items())
+    print(f"# pipeline depth {depth} ({card}): {out['n_rec']} frames, "
+          f"{out['ok']} OK, state {slam.state}; frames/s over frames "
+          f"10-99 {out['fps']:.3f}; call wall p50 {out['p50']:.2f} ms, p95 "
+          f"{out['p95']:.2f} ms; ATE {out['ate']:.4f} m on {path:.2f} m "
+          f"({100 * out['ate'] / path:.3f}%); reduction "
+          f"{out['reduction']:.4f}, compressed points {out['compressed']}; "
+          f"keyframes {slam.keyframes_in_map()}; prefetch hits "
+          f"{out['hits']}, stats fetches {out['fetches']}, kernel launches "
+          f"{launches}; stages: {st}")
+    return out
+
+
+def phase_pipeline(corridor=None, p4=None, compare_depth2=False):
+    """bench.py's pipeline on the card (phase 18): phase 4's 100 corridor
+    frames and configuration at MSSLAM_PIPELINE_DEPTH=4 (fetch batch 2)
+    with next_images on every frame (bench.py:35,92-106). Held: 100 of 100
+    frames OK; ATE under 2% of the path (phase 4's bar); reduction > 0 and
+    compressed points > 0 after shutdown(); exactly one patch-gather launch
+    a frame (the prefetch neither runs a frontend twice nor drops one); at
+    least 90 frames taken from the prefetch; at most 60 stats fetches (two
+    frames a fetch). Printed beside phase 4's numbers (`p4`, depth 2 with a
+    device sync a frame) when it ran in this script; with compare_depth2
+    the same run at depth 2 follows, for a comparison in one call.
+
+    Then the padded-stack extractor at full width on frame 0:
+    orb.extract_stack_multi on both images (exactly one patch-gather launch,
+    the kernel at the stack shape of phase 3) and stereo.match_stereo_stack,
+    held to at least 80% of the frontend's (canvas path's) stereo matches
+    on the same frame and a median |disparity - the render's| under 0.7 px
+    in pixels of each keypoint's level (phase 11's bar)."""
+    from ms_slam_tpu_torch.ops import orb, stereo
+    from ms_slam_tpu_torch.pipeline import frontend
+    card = _card()
+    t_phase = time.perf_counter()
+    poses, frames = corridor or _corridor_frames()
+    run = _drive_pipelined(frames, poses, 4, card)
+    if p4 is not None:
+        st = "; ".join(f"{k} n={c} p50 {p:.3f} ms total {t:.3f} s"
+                       for k, (c, p, t) in p4["stages"].items())
+        print(f"# phase 4 beside it (depth 2, a device sync after each "
+              f"frame): frames/s {p4['fps']:.3f}; frame wall p50 "
+              f"{p4['p50']:.2f} ms, p95 {p4['p95']:.2f} ms; stages: {st}")
+    n = len(frames)
+    _check(run["slam"].state == "OK" and run["n_rec"] == n
+           and run["ok"] == n, f"pipeline: {run['ok']} of {n} frames OK")
+    _check(run["ate"] < 0.02 * run["path"], "pipeline: ATE above 2%")
+    _check(run["reduction"] > 0 and run["compressed"] > 0,
+           "pipeline: no reduction or no compressed point")
+    _check(run["launches"] == n, f"pipeline: patch_gather launched "
+           f"{run['launches']} times for {n} frames")
+    _check(run["hits"] >= 90, f"pipeline: {run['hits']} prefetch hits")
+    _check(run["fetches"] <= 60, f"pipeline: {run['fetches']} stats fetches")
+    result = {"depth4": {k: v for k, v in run.items() if k != "slam"}}
+    del run
+    if compare_depth2:
+        d2 = _drive_pipelined(frames, poses, 2, card)
+        result["depth2"] = {k: v for k, v in d2.items() if k != "slam"}
+        del d2
+
+    # the padded-stack extractor and its matcher on frame 0
+    cfg = _main_cfg()
+    pair = torch.from_numpy(np.stack(frames[0])).cuda()
+    fd = frontend.process_stereo_stacked(pair, cfg.calib, cfg.orb)
+    torch.cuda.synchronize()
+    orb.patch_gather_launches = 0
+    t0 = time.perf_counter()
+    feats, stacks, _ = orb.extract_stack_multi(pair.float(), cfg.orb)
+    fl, fr = (orb.Features(*[a[b] for a in feats]) for b in range(2))
+    sm = stereo.match_stereo_stack(fl, fr, stacks[0], stacks[1],
+                                   cfg.calib.bf, cfg.calib.min_z, cfg.orb)
+    torch.cuda.synchronize()
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    stack_launches = orb.patch_gather_launches
+    n_stack = int(sm.valid.sum())
+    n_canvas = int((fd.depth > 0).sum())
+    gt_depth = _corridor_depth(poses[0])
+    ok = sm.valid.cpu().numpy()
+    xy = fl.xy.cpu().numpy()[ok]
+    disp = (xy[:, 0] - sm.u_right.cpu().numpy()[ok])
+    gt = gt_depth[np.clip(np.round(xy[:, 1]).astype(int), 0, H - 1),
+                  np.clip(np.round(xy[:, 0]).astype(int), 0, W - 1)]
+    level_px = cfg.orb.scale_factor ** fl.octave.cpu().numpy()[ok]
+    err = np.abs(disp - cfg.calib.bf / gt) / level_px
+    print(f"# stack extractor on frame 0 ({card}): {stack_ms:.2f} ms for "
+          f"extract_stack_multi + match_stereo_stack (host clock between "
+          f"two device syncs); kernel launches {stack_launches}; stereo "
+          f"matches {n_stack} against the canvas frontend's {n_canvas} "
+          f"({n_stack / max(n_canvas, 1):.4f}, bar 0.8); |disparity - the "
+          f"render's| in pixels of the keypoint's level: median "
+          f"{np.median(err):.4f} (bar 0.7), share under 1.5 "
+          f"{(err < 1.5).mean():.4f}")
+    _check(stack_launches == 1, f"stack extractor: {stack_launches} "
+           "patch-gather launches")
+    _check(n_stack >= 0.8 * n_canvas, "stack extractor: too few matches")
+    _check(np.median(err) < 0.7, "stack extractor: disparity error")
+    result.update(stack_launches=stack_launches, stack_matches=n_stack,
+                  canvas_matches=n_canvas)
+    print(f"# phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+def _corridor_depth(T_wc):
+    """Depth (camera z) of every pixel of phase 4's corridor seen from T_wc,
+    by the renderer's own ray-plane intersection (synth.CorridorWorld)."""
+    import inspect
+
+    from ms_slam_tpu_torch.utils import synth
+    kw = dict(CORRIDOR[1])
+    kw.setdefault("y_ceil", inspect.signature(
+        synth.CorridorWorld).parameters["y_ceil"].default)
+    us, vs = np.meshgrid(np.arange(W), np.arange(H))
+    rays = np.stack([(us - W / 2) / FX, (vs - H / 2) / FX,
+                     np.ones(us.shape)], -1)              # z = 1: t is depth
+    d = rays @ T_wc[:3, :3].T
+    depth = np.full((H, W), np.inf)
+    for ax, val in ((0, kw["half_w"]), (0, -kw["half_w"]),
+                    (1, kw["y_floor"]), (1, kw["y_ceil"])):
+        da = d[..., ax]
+        hit = np.abs(da) > 1e-9
+        t = np.where(hit, (val - T_wc[ax, 3]) / np.where(hit, da, 1.0), -1)
+        depth = np.where((t > 0.1) & (t < depth), t, depth)
+    return depth
+
+
+def phase_memory_then_pipeline(ab_on, corridor, p4):
+    """Phases 17 and 18 in turn, in one process beside phase 15."""
+    return phase_memory(ab_on, corridor), phase_pipeline(corridor, p4)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-only", action="store_true",
@@ -2790,6 +3021,9 @@ def main():
     ap.add_argument("--memory-only", action="store_true",
                     help="phases 1-3 and 17 only (no status line is "
                     "printed)")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="phases 1-3 and 18 only, and phase 18's run at "
+                    "depth 2 beside it (no status line is printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
                     "builds its patch_gather.cu and times the two kernels "
@@ -2808,16 +3042,17 @@ def _run(args):
     by_phase = {}
     only = [k for k in ("kernel_only", "loop_only", "imu_only",
                         "sensors_only", "cli_only", "atlas_only",
-                        "imu_loop_only", "memory_only") if getattr(args, k)]
+                        "imu_loop_only", "memory_only", "pipeline_only")
+            if getattr(args, k)]
     part = bool(only)
     t_start = time.perf_counter()
-    ab_on = None
+    ab_on = p4 = None
     if not part:
         run = phase_main_path()
         by_phase["main_path"] = run["launches"]
         by_phase["relocalization"] = phase_relocalize(run)
         phase_ties_and_selector(run["window"])
-        ab_on = run["ab_on"]
+        ab_on, p4 = run["ab_on"], run["p4"]
         del run
     if not part or only == ["loop_only"]:
         by_phase["loop_closing"], slam = phase_loop_closing()
@@ -2833,26 +3068,33 @@ def _run(args):
     if not part or only == ["cli_only"]:
         by_phase["cli"] = phase_cli()
     if not part:
-        # phases 16 and 17 run in two more processes beside phase 15: the
-        # port is host-bound (the card is busy 12-17% of a frame), so three
-        # Systems share the card with little loss and the script fits its
-        # time. Each process counts its own launches.
+        # phase 16, and phases 17 and 18 in turn, run in two more processes
+        # beside phase 15: the port is host-bound (the card is busy 12-17%
+        # of a frame), so three Systems share the card with little loss and
+        # the script fits its time. Each process counts its own launches.
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
         with ProcessPoolExecutor(
                 2, mp_context=multiprocessing.get_context("spawn")) as ex:
             loop16 = ex.submit(phase_inertial_loop, _circuit_frames())
-            memory17 = ex.submit(phase_memory, ab_on, _corridor_frames())
+            memory17 = ex.submit(phase_memory_then_pipeline, ab_on,
+                                 _corridor_frames(), p4)
             by_phase["atlas"] = phase_atlas()
             by_phase["inertial_loop"] = loop16.result()
-            by_phase["memory"] = memory17.result()
+            by_phase["memory"], pipe = memory17.result()
+            by_phase["pipeline"] = pipe["depth4"]["launches"]
+            by_phase["pipeline_stack"] = pipe["stack_launches"]
     elif only == ["atlas_only"]:
         by_phase["atlas"] = phase_atlas()
     elif only == ["imu_loop_only"]:
         by_phase["inertial_loop"] = phase_inertial_loop()
     elif only == ["memory_only"]:
         by_phase["memory"] = phase_memory()
-    print(f"# phases 4-17 took {time.perf_counter() - t_start:.1f} s")
+    elif only == ["pipeline_only"]:
+        pipe = phase_pipeline(compare_depth2=True)
+        by_phase["pipeline"] = pipe["depth4"]["launches"]
+        by_phase["pipeline_stack"] = pipe["stack_launches"]
+    print(f"# phases 4-18 took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "patch_gather", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",

@@ -224,17 +224,37 @@ class KeyFrameDatabase:
         self.has_row[kf_slot] = False
         self._buffer = [b for b in self._buffer if b[0] != kf_slot]
 
+    def _candidates(self, exclude):
+        """Present slots minus `exclude`, or None when none is left."""
+        mask = self.present.copy()
+        for e in exclude or ():
+            if 0 <= e < len(mask):
+                mask[e] = False
+        return mask if mask.any() else None
+
+    def query_brute(self, kf_desc, kf_kp_valid, q_desc, q_valid,
+                    exclude: set[int] | None = None, k: int = 5,
+                    min_score: float = 0.05):
+        """Exact descriptor-set scoring (`place_scores`) over every present
+        keyframe. Returns (slots, scores) best-first, scores > min_score."""
+        mask = self._candidates(exclude)
+        if mask is None:
+            return [], []
+        scores = place_scores(
+            kf_desc, kf_kp_valid, torch.from_numpy(mask).to(kf_desc.device),
+            q_desc, q_valid).cpu().numpy()
+        order = [int(i) for i in np.argsort(-scores)[:k]
+                 if scores[i] > min_score]
+        return order, [float(scores[i]) for i in order]
+
     def query(self, descs, valid, exclude: set[int] | None = None,
               k: int = 5):
         """Top-k candidate keyframes by idf-weighted cosine similarity.
         Returns (slots, scores) best-first."""
         if not self._trained:
             self._train_now()
-        mask = self.present.copy()
-        for e in exclude or ():
-            if 0 <= e < len(mask):
-                mask[e] = False
-        if not mask.any():
+        mask = self._candidates(exclude)
+        if mask is None:
             return [], []
         q = bow_vector(self.codebook, descs, valid)
         scores = tfidf_scores(

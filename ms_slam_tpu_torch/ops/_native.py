@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -22,6 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()        # one build per library, whatever thread
 build_log: dict[str, str] = {}      # name -> nvcc's output of this process's build
 
 
@@ -60,7 +62,9 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, built on first use."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build(name))
-    return _loaded[name]
+    """The ctypes handle of csrc/<name>.cu, built on first use (under a
+    lock: a prefetch worker and the main thread may both be first)."""
+    with _load_lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(build(name))
+        return _loaded[name]

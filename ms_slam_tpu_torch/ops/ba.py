@@ -3,17 +3,21 @@
 
 `ba_alternate` is the resection-intersection BA run over the whole map after
 a loop closure or a merge. `ba_solve` is the port of
-`ms_slam_tpu/ops/ba.py::ba_solve` with `cam_blocked=True`, the path
-the window BA takes: Levenberg-damped Gauss-Newton over SE(3) camera
-blocks and 3D point blocks with Huber weights, a two-stage schedule (half
-the iterations, drop chi2 outliers, the rest), fixed cameras/points by
-Jacobian masking, and a dense reduced camera system.
+`ms_slam_tpu/ops/ba.py::ba_solve`: Levenberg-damped Gauss-Newton over SE(3)
+camera blocks and 3D point blocks with Huber weights, a two-stage schedule
+(half the iterations, drop chi2 outliers, the rest), fixed cameras/points
+by Jacobian masking, and a dense reduced camera system. With
+`cam_blocked=True` (the window BA's camera-block-ordered table) duplicate
+(point, camera) factors are resolved first; without it the factor table is
+in any order and duplicates add, as the reference's one-hot sums do.
 
 The per-(point, camera) accumulation is one f32 `index_add_` over the
 (point, camera) key instead of the reference's bf16 hi/lo one-hot matmul
-(ba.py:199-233), a TPU device for riding the MXU. After the duplicate
-pass below every (point, camera) key holds at most one factor, so the
-accumulation is a placement and its result does not depend on the order.
+(ba.py:199-233), a TPU device for riding the MXU; per-camera sums of an
+arbitrary table are an `index_add_` over the camera. After the duplicate
+pass of the blocked table every (point, camera) key holds at most one
+factor, so that accumulation is a placement and its result does not depend
+on the order.
 """
 from __future__ import annotations
 
@@ -139,14 +143,12 @@ def ba_solve(model: int, params, bf, kf_R, kf_t, cam_opt, mp_pos, pt_opt,
              lam: float = 1e-4, cam_blocked: bool = False) -> BAResult:
     """Bundle adjust C cameras and P points over F factors.
 
-    cam_opt (C,) / pt_opt (P,): False = fixed. The factor table must be
-    camera-block-ordered (f_cam == repeat(arange(C), F//C), the (C,N)
-    observation layout); a duplicate (point, camera) factor keeps only its
-    LAST occurrence, as the reference's CPU scatter does, and the others are
-    zero-weighted and reported as outliers."""
-    if not cam_blocked:
-        raise NotImplementedError("only the camera-blocked factor table "
-                                  "(the window BA's) is ported")
+    cam_opt (C,) / pt_opt (P,): False = fixed. cam_blocked: the factor
+    table is camera-block-ordered (f_cam == repeat(arange(C), F//C), the
+    (C,N) observation layout); a duplicate (point, camera) factor then
+    keeps only its LAST occurrence, as the reference's CPU scatter does,
+    and the others are zero-weighted and reported as outliers. Otherwise
+    the factors may come in any order and every one counts."""
     C = kf_R.shape[0]
     P = mp_pos.shape[0]
     F_ = f_cam.shape[0]
@@ -162,17 +164,29 @@ def ba_solve(model: int, params, bf, kf_R, kf_t, cam_opt, mp_pos, pt_opt,
     hub_d2 = torch.where(is_stereo, robust.CHI2_3DOF,
                          robust.CHI2_2DOF).to(dt)
 
-    # inverse observation table: the factor row of point p in camera c
-    # (F_ = none); duplicate keys resolve to the last write
     pc = f_pt.clamp(0, P - 1)
     cc = f_cam.clamp(0, C - 1)
-    arangeF = torch.arange(F_, device=dev)
-    inv_f = set_at_(torch.full((P, C), F_, dtype=torch.int64, device=dev),
-                    (torch.where(f_valid, pc, P), cc), arangeF)
-    dup_keep = inv_f[pc, cc] == arangeF
-    w_info = torch.where(dup_keep, w_info, torch.zeros_like(w_info))
-    f_valid = f_valid & dup_keep
-    key = torch.where(f_valid, pc * C + cc, torch.full_like(pc, P * C))
+    if cam_blocked:
+        # inverse observation table: the factor row of point p in camera c
+        # (F_ = none); duplicate keys resolve to the last write
+        arangeF = torch.arange(F_, device=dev)
+        inv_f = set_at_(torch.full((P, C), F_, dtype=torch.int64,
+                                   device=dev),
+                        (torch.where(f_valid, pc, P), cc), arangeF)
+        dup_keep = inv_f[pc, cc] == arangeF
+        w_info = torch.where(dup_keep, w_info, torch.zeros_like(w_info))
+        f_valid = f_valid & dup_keep
+        key = torch.where(f_valid, pc * C + cc, torch.full_like(pc, P * C))
+    else:
+        # an invalid factor carries zero weight, so it adds nothing
+        key = pc * C + cc
+
+    def cam_accumulate(x_f):
+        """sum_f x[f] grouped by camera: (F,k) -> (C,k)."""
+        if cam_blocked:
+            return x_f.reshape(C, F_ // C, -1).sum(1)
+        return torch.zeros((C, x_f.shape[1]), dtype=dt,
+                           device=dev).index_add_(0, cc, x_f)
 
     def pt_accumulate(x_f):
         """sum_f x[f] grouped by (point, camera): (F,k) -> (P,C,k)."""
@@ -198,8 +212,8 @@ def ba_solve(model: int, params, bf, kf_R, kf_t, cam_opt, mp_pos, pt_opt,
 
         outer_c = (JcW.transpose(1, 2) @ Jc).reshape(F_, 36)
         gc = -(JcW.transpose(1, 2) @ res[..., None])[..., 0]
-        Hcc = outer_c.reshape(C, F_ // C, 36).sum(1).reshape(C, 6, 6)
-        bc = gc.reshape(C, F_ // C, 6).sum(1)
+        Hcc = cam_accumulate(outer_c).reshape(C, 6, 6)
+        bc = cam_accumulate(gc)
         outer_p = (JpW.transpose(1, 2) @ Jp).reshape(F_, 9)
         gp = -(JpW.transpose(1, 2) @ res[..., None])[..., 0]
         Wcp = JcW.transpose(1, 2) @ Jp                      # (F,6,3)

@@ -6,6 +6,8 @@ Port of `ms_slam_tpu/ops/inertial_opt.py`:
   [T_wb, v, bg, ba] with visual reprojection, the preintegration factor
   against the fixed previous state and a bias random walk (ref
   Optimizer::PoseInertialOptimizationLastFrame);
+- `inertial_window_refine`: the inertial half of LocalInertialBA, window
+  poses, velocities and a shared bias against fixed landmarks;
 - `inertial_init`: the IMU initialization MAP estimate of gravity direction,
   shared biases (and optional scale) and per-keyframe velocities, seeded by
   a closed-form linear alignment (ref Optimizer::InertialOptimization);
@@ -175,6 +177,119 @@ def pose_vel_bias_optimize(
     R, p, v, bg, ba = unpack(x)
     return PVBResult(R_wb=R, p_wb=p, v=v, bg=bg, ba=ba, inlier=inlier,
                      n_inliers=inlier.sum().to(torch.int32))
+
+
+class WindowRefineResult(NamedTuple):
+    R_wb: torch.Tensor    # (W,3,3)
+    p_wb: torch.Tensor    # (W,3)
+    vels: torch.Tensor    # (W,3)
+    bg: torch.Tensor
+    ba: torch.Tensor
+    cost: torch.Tensor
+
+
+def inertial_window_refine(
+        model: int, params, bf, R_wb, p_wb, vels, kf_mask,
+        preints: imu.PreintState, preint_valid, bg0, ba0, g,
+        X, f_kf, f_uv, f_ur, f_sigma2, f_valid, walk_info,
+        n_iters: int = 5, R_bc=None, t_bc=None) -> WindowRefineResult:
+    """The inertial half of LocalInertialBA (ref Optimizer::LocalInertialBA):
+    jointly refine the window keyframes' poses, velocities and a shared
+    bias against fixed landmarks X (one row per factor) and the
+    preintegration chain (preints stacked on a (W-1,) axis, interval
+    i -> i+1). f_kf indexes the window. The oldest keyframe's pose is held
+    by a soft prior (1e3 on its six tangent entries). State: 9 per keyframe
+    (dp, dtheta, dv) + 6 bias; Gauss-Newton with a dense (9W+6)^2 solve,
+    the visual rows' Huber weights fixed within a step (IRLS)."""
+    W = R_wb.shape[0]
+    dt = R_wb.dtype
+    dev = R_wb.device
+    D = 9 * W + 6
+    params = params.to(dt)
+    bf = torch.as_tensor(bf, dtype=dt, device=dev)
+    R_bc = (torch.eye(3, dtype=dt, device=dev) if R_bc is None
+            else R_bc.to(dt))
+    t_bc = (torch.zeros(3, dtype=dt, device=dev) if t_bc is None
+            else t_bc.to(dt))
+    p_wb, vels = p_wb.to(dt), vels.to(dt)
+    bg0, ba0, g = bg0.to(dt), ba0.to(dt), g.to(dt)
+    f_kf = f_kf.long()
+    is_stereo = f_ur >= 0.0
+    w_info = torch.where(f_valid, 1.0 / torch.clamp(f_sigma2, min=1e-12),
+                         torch.zeros_like(f_sigma2)).to(dt)
+    hub_d2 = torch.where(is_stereo, robust.CHI2_3DOF, robust.CHI2_2DOF).to(dt)
+    ok = (preint_valid & kf_mask[:-1] & kf_mask[1:]).to(dt)
+    LT = imu.sqrt_information(preints).transpose(-1, -2)
+    sqrt_walk = torch.sqrt(walk_info.to(dt))
+    # constant Jacobian rows: the bias walk and the first pose's prior
+    J_prior = torch.zeros(12, D, dtype=dt, device=dev)
+    J_prior[:6, 9 * W:] = torch.diag(sqrt_walk)
+    J_prior[6:, :6] = 1e3 * torch.eye(6, dtype=dt, device=dev)
+    cols = (9 * torch.arange(W - 1, device=dev)[:, None]
+            + torch.arange(18, device=dev))[:, None, :].expand(W - 1, 9, 18)
+    eyeD = torch.eye(D, dtype=dt, device=dev)
+
+    def unpack(x):
+        d = x[:9 * W].reshape(W, 9)
+        R = lie.orthonormalize(lie.so3_exp(d[:, 3:6]) @ R_wb)
+        return (R, p_wb + d[:, :3], vels + d[:, 6:], bg0 + x[9 * W:9 * W + 3],
+                ba0 + x[9 * W + 3:])
+
+    def visual(R, p, jac):
+        R_cw, t_cw = _cam_of_body(R, p, R_bc, t_bc)
+        return proj_res_jac(model, params, bf, R_cw[f_kf], t_cw[f_kf],
+                            p[f_kf], X.to(dt), f_uv, f_ur, is_stereo, jac)
+
+    def sqrt_w(rv, Xc):
+        return torch.sqrt(_point_weights(rv, Xc, w_info, hub_d2))
+
+    def residuals(x, R, p, v, bg, ba, sw, jac):
+        """Stacked residual [visual, whitened chain, bias walk, prior] and,
+        with jac, its Jacobian's normal equations (H, J^T r)."""
+        rv, Xc, Jpose, _ = visual(R, p, jac)
+        rv = rv * sw[:, None]
+        r, J = imu.inertial_residual_jac(preints, R[:-1], v[:-1], p[:-1],
+                                         R[1:], v[1:], p[1:], bg, ba, g)
+        ri = _mv(LT, r) * ok[:, None]
+        res = torch.cat([rv.reshape(-1), ri.reshape(-1),
+                         x[9 * W:] * sqrt_walk, x[:6] * 1e3])
+        if not jac:
+            return res
+        Jl = lie.so3_left_jacobian(x[:9 * W].reshape(W, 9)[:, 3:6])
+        J6 = torch.cat([Jpose[..., :3], Jpose[..., 3:] @ Jl[f_kf]], -1) \
+            * sw[:, None, None]
+        Hv = torch.zeros(W, 6, 6, dtype=dt, device=dev).index_add_(
+            0, f_kf, J6.transpose(-1, -2) @ J6)
+        gv = torch.zeros(W, 6, dtype=dt, device=dev).index_add_(
+            0, f_kf, _mv(J6.transpose(-1, -2), rv))
+        J18 = torch.cat([J.p1, J.th1 @ Jl[:-1], J.v1,
+                         J.p2, J.th2 @ Jl[1:], J.v2], -1)
+        J18 = LT @ J18 * ok[:, None, None]
+        Ji = torch.zeros(W - 1, 9, D, dtype=dt, device=dev)
+        Ji.scatter_(2, cols, J18)
+        Ji[:, :, 9 * W:] = LT @ torch.cat([J.bg, J.ba], -1) \
+            * ok[:, None, None]
+        Jr = torch.cat([Ji.reshape(-1, D), J_prior], 0)
+        rr = torch.cat([ri.reshape(-1), x[9 * W:] * sqrt_walk, x[:6] * 1e3])
+        H = Jr.T @ Jr
+        Hb = H[:9 * W, :9 * W].view(W, 9, W, 9)
+        k = torch.arange(W, device=dev)
+        Hb[k, :6, k, :6] += Hv
+        Jtr = _mv(Jr.T, rr)
+        Jtr[:9 * W].view(W, 9)[:, :6] += gv
+        return res, H, Jtr
+
+    x = torch.zeros(D, dtype=dt, device=dev)
+    for _ in range(n_iters):
+        R, p, v, bg, ba = unpack(x)
+        rv, Xc, _, _ = visual(R, p, False)
+        _, H, Jtr = residuals(x, R, p, v, bg, ba, sqrt_w(rv, Xc), True)
+        x = x + _solve(H + 1e-6 * eyeD, -Jtr)
+    R, p, v, bg, ba = unpack(x)
+    rv, Xc, _, _ = visual(R, p, False)
+    r = residuals(x, R, p, v, bg, ba, sqrt_w(rv, Xc), False)
+    return WindowRefineResult(R_wb=R, p_wb=p, vels=v, bg=bg, ba=ba,
+                              cost=torch.sum(r * r))
 
 
 class VIWindowResult(NamedTuple):

@@ -67,7 +67,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix logarithm (...,3,3) -> (...,3), via the quaternion."""
-    return _quat_log(rot_to_quat(R))
+    return quat_log(rot_to_quat(R))
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
@@ -112,7 +112,8 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
-def _quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """(...,4) (w,x,y,z) -> (...,3,3)."""
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack([
         torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
@@ -124,7 +125,8 @@ def _quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
-def _quat_log(q: torch.Tensor) -> torch.Tensor:
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w,x,y,z) -> rotation vector (...,3)."""
     w = torch.clamp(q[..., 0], -1.0, 1.0)
     v = q[..., 1:]
     vn2 = torch.sum(v * v, dim=-1)
@@ -219,7 +221,7 @@ def solve_psd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation back onto SO(3) by a quaternion round trip."""
-    return _quat_to_rot(rot_to_quat(R))
+    return quat_to_rot(rot_to_quat(R))
 
 
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
@@ -262,6 +264,14 @@ def se3_apply(R, t, X):
 # Sim(3): (s: (...,), R: (...,3,3), t: (...,3)); tangent [v, w, sigma]. Loop
 # closing and the 7-DoF essential graph use it.
 # ---------------------------------------------------------------------------
+
+def se3_matrix(R, t):
+    """(R,t) -> (...,4,4) homogeneous matrix."""
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(*R.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
 
 def sim3_apply(s, R, t, X):
     return s[..., None] * _mv(R, X) + t

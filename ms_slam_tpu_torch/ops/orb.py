@@ -1,11 +1,14 @@
-"""ORB feature extraction on canvas-packed pyramids.
+"""ORB feature extraction on canvas-packed pyramids and padded level stacks.
 
-Port of the canvas path of `ms_slam_tpu/ops/orb.py`: all pyramid levels of
-an image sit side by side in one (H, Wc) plane; FAST-9, 3x3 NMS and the
-per-cell / per-level top-k run on that plane; orientation and steered BRIEF
-run on one 45x45 raw patch per keypoint. The patch gather is the
-hand-written CUDA kernel `csrc/patch_gather.cu` (the reference's one Pallas
-kernel); everything else is plain torch.
+Port of `ms_slam_tpu/ops/orb.py`. The canvas path (the one the frontend
+runs): all pyramid levels of an image sit side by side in one (H, Wc)
+plane; FAST-9, 3x3 NMS and the per-cell / per-level top-k run on that
+plane; orientation and steered BRIEF run on one 45x45 raw patch per
+keypoint. The stack path (`extract_stack_multi`): every level padded to
+the full (H, W) plane, B images' levels in one (B*L, H, W) stack, the same
+stages on it. Both gather their patches through the hand-written CUDA
+kernel `csrc/patch_gather.cu` (the reference's one Pallas kernel);
+everything else is plain torch.
 
 The canvas stays float32 on the card (the reference's bf16 canvas is a TPU
 bandwidth choice). Descriptors are (N,8) int32 with the reference's uint32
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -136,6 +141,14 @@ def _resize_weights(in_size: int, out_size: int, device: torch.device):
     return torch.from_numpy(_resize_weights_np(in_size, out_size)).to(device)
 
 
+def _resize(imgs: torch.Tensor, lh: int, lw: int) -> torch.Tensor:
+    """(..., H, W) -> (..., lh, lw): `jax.image.resize`'s bilinear,
+    antialiased when downsampling, as two matmuls with its weights."""
+    h, w = imgs.shape[-2:]
+    return (_resize_weights(h, lh, imgs.device).T @ imgs
+            @ _resize_weights(w, lw, imgs.device))
+
+
 def build_canvas_multi(imgs: torch.Tensor, cfg: OrbConfig) -> torch.Tensor:
     """(B,H,W) float32 -> (B,H,Wc) packed canvases (level l at columns
     [off_l, off_l+w_l), rows [0, h_l)). Each level is the antialiased
@@ -144,12 +157,7 @@ def build_canvas_multi(imgs: torch.Tensor, cfg: OrbConfig) -> torch.Tensor:
     offs, Wc, shapes = canvas_layout(h, w, cfg)
     parts = []
     for l, (lh, lw) in enumerate(shapes):
-        if l == 0:
-            img_l = imgs
-        else:
-            wy = _resize_weights(h, lh, imgs.device)
-            wx = _resize_weights(w, lw, imgs.device)
-            img_l = wy.T @ imgs @ wx
+        img_l = imgs if l == 0 else _resize(imgs, lh, lw)
         seg_w = (offs[l + 1] if l + 1 < len(offs) else Wc) - offs[l]
         parts.append(F.pad(img_l, (0, seg_w - lw, 0, h - lh)))
     return torch.cat(parts, dim=2)
@@ -194,6 +202,42 @@ def fast_score_batched(stack: torch.Tensor, min_th: float) -> torch.Tensor:
     return torch.where(score >= min_th, score, torch.zeros_like(score))
 
 
+def fast_score(img: torch.Tensor, min_th: float) -> torch.Tensor:
+    """Per-pixel FAST-9 score of one (H,W) image (`fast_score_batched` on a
+    stack of one)."""
+    return fast_score_batched(img[None], min_th)[0]
+
+
+def _nms3(score: torch.Tensor) -> torch.Tensor:
+    """3x3 local-maximum suppression of a (..., H, W) score (the window
+    padded with -inf, as reduce_window's SAME padding)."""
+    s = score.reshape(-1, 1, *score.shape[-2:])
+    m = F.max_pool2d(s, 3, stride=1, padding=1).reshape(score.shape)
+    return torch.where(score >= m, score, torch.zeros_like(score))
+
+
+@functools.lru_cache()
+def _circular_offsets(radius: int):
+    """(dy, dx) int32 offsets inside the circle of the given radius."""
+    ys, xs = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    mask = (ys ** 2 + xs ** 2) <= radius ** 2
+    return ys[mask].astype(np.int32), xs[mask].astype(np.int32)
+
+
+def _level_top(cand_v, cand_y, cand_x, quota: int):
+    """The per-level quota of a level's candidates (B, n_l): exact top-k
+    (the reference's approx_max_k and top_k are exact on the CPU), padded
+    with invalid rows when the level has fewer candidates than its quota.
+    Returns y, x, score, valid, each (B, quota)."""
+    n_l = cand_v.shape[1]
+    v, i = top_k(cand_v, min(quota, n_l))
+    if quota > n_l:
+        v = F.pad(v, (0, quota - n_l))
+        i = F.pad(i, (0, quota - n_l))
+    return (torch.gather(cand_y, 1, i), torch.gather(cand_x, 1, i),
+            torch.where(v >= 1e4, v - 1e4, v), v > 0.0)
+
+
 _FY, _FX = 4, 8     # fine sub-block (rows x cols) of the two-stage cell top-k
 
 
@@ -201,45 +245,53 @@ def detect_canvas(canvas: torch.Tensor, w: int, cfg: OrbConfig):
     """All-level detection on packed canvases (B,H,Wc). Returns per-image
     (B,N) tensors: level, y, x_canvas, score, valid.
 
-    The reference's default two-stage cell top-k (orb.py:523-562): the
-    best (score, position)-packed corner of every 4x8 sub-block, then an
-    exact top-k over each cell's sub-block maxima; candidate order is
-    level-major so each level's candidates form one contiguous slice."""
+    The per-cell top-k takes the reference's two branches (orb.py:519-599):
+    by default the best (score, position)-packed corner of every 4x8
+    sub-block, then an exact top-k over each cell's sub-block maxima; with
+    MSSLAM_NO_SUBBLOCK set, or a cell size the sub-blocks do not tile (not
+    a multiple of 8, or fewer than cell_top_k sub-blocks), an exact top-k
+    over each cell's pixels (the reference's approx_max_k, exact on the
+    CPU). Candidate order is level-major, so each level's candidates form
+    one contiguous slice for the per-level quota."""
     B, h, Wc = canvas.shape
     cs = cfg.cell_size
     k = min(cfg.cell_top_k, cs * cs)
-    if cs % _FY or cs % _FX or (cs // _FY) * (cs // _FX) < k:
-        raise NotImplementedError(
-            "only the sub-block detection path (cell_size a multiple of 8 "
-            "with (cell/4)*(cell/8) >= cell_top_k) is ported")
     dev = canvas.device
     score = fast_score_batched(canvas, cfg.min_th)
     _, ghc, gwc = _canvas_masks_np(h, w, cfg)
     score = torch.where(_canvas_mask(h, w, cfg, dev)[None], score,
                         torch.zeros_like(score))
-    mx = F.max_pool2d(score[:, None], 3, stride=1, padding=1)[:, 0]
-    score = torch.where(score >= mx, score, torch.zeros_like(score))
+    score = _nms3(score)
     rank = torch.where(score >= cfg.ini_th, score + 1e4, score)
 
     nc = ghc * gwc
     rank = F.pad(rank, (0, 0, 0, ghc * cs - h))
     npos = cs * cs
-    nf_y, nf_x = cs // _FY, cs // _FX
-    H2 = rank.shape[1]
-    yy = torch.arange(H2, device=dev, dtype=torch.int32)[:, None]
-    xx = torch.arange(Wc, device=dev, dtype=torch.int32)[None, :]
-    lpos = (yy % cs) * cs + (xx % cs)
-    # pack: round(score * 64) * npos + position within the cell
-    # (scores < ~1.1e4 after the bonus -> 656k * 1024 < 2^31)
-    packed = torch.round(rank * 64.0).to(torch.int32) * npos + lpos[None]
-    fine = packed.view(B, H2 // _FY, _FY, Wc // _FX, _FX).amax(dim=(2, 4))
-    fine = fine.view(B, ghc, nf_y, gwc, nf_x).permute(0, 3, 1, 2, 4)
-    fine = fine.reshape(B, nc, nf_y * nf_x)            # level-major cells
-    bm, _ = top_k(fine, k)
-    bm = torch.clamp(bm.reshape(B, nc * k), min=0)
-    ti = bm % npos
-    top_v = (bm // npos).to(torch.float32) * (1.0 / 64.0)
     cell = torch.arange(nc * k, device=dev, dtype=torch.int32)[None] // k
+    use_fine = (not os.environ.get("MSSLAM_NO_SUBBLOCK")
+                and cs % _FY == 0 and cs % _FX == 0
+                and (cs // _FY) * (cs // _FX) >= k)
+    if use_fine:
+        nf_y, nf_x = cs // _FY, cs // _FX
+        H2 = rank.shape[1]
+        yy = torch.arange(H2, device=dev, dtype=torch.int32)[:, None]
+        xx = torch.arange(Wc, device=dev, dtype=torch.int32)[None, :]
+        lpos = (yy % cs) * cs + (xx % cs)
+        # pack: round(score * 64) * npos + position within the cell
+        # (scores < ~1.1e4 after the bonus -> 656k * 1024 < 2^31)
+        packed = torch.round(rank * 64.0).to(torch.int32) * npos + lpos[None]
+        fine = packed.view(B, H2 // _FY, _FY, Wc // _FX, _FX).amax(dim=(2, 4))
+        fine = fine.view(B, ghc, nf_y, gwc, nf_x).permute(0, 3, 1, 2, 4)
+        fine = fine.reshape(B, nc, nf_y * nf_x)        # level-major cells
+        bm, _ = top_k(fine, k)
+        bm = torch.clamp(bm.reshape(B, nc * k), min=0)
+        ti = bm % npos
+        top_v = (bm // npos).to(torch.float32) * (1.0 / 64.0)
+    else:
+        cells = rank.reshape(B, ghc, cs, gwc, cs).permute(0, 3, 1, 2, 4)
+        top_v, ti = top_k(cells.reshape(B, nc, npos), k)
+        top_v = top_v.reshape(B, nc * k)
+        ti = ti.reshape(B, nc * k).to(torch.int32)
     cy = (cell % ghc) * cs + ti // cs
     cx = (cell // ghc) * cs + ti % cs
 
@@ -249,17 +301,12 @@ def detect_canvas(canvas: torch.Tensor, w: int, cfg: OrbConfig):
         gx0 = offs[l] // cs
         gx1 = (offs[l + 1] // cs) if l + 1 < cfg.n_levels else gwc
         sl = slice(gx0 * ghc * k, gx1 * ghc * k)
-        n_l = (gx1 - gx0) * ghc * k
-        # the reference's approx_max_k is exact on the CPU: exact top-k
-        v, i = top_k(top_v[:, sl], min(quota, n_l))
-        if quota > n_l:
-            v = F.pad(v, (0, quota - n_l))
-            i = F.pad(i, (0, quota - n_l))
-        ys.append(torch.gather(cy[:, sl], 1, i))
-        xs.append(torch.gather(cx[:, sl], 1, i))
+        y, x, v, ok = _level_top(top_v[:, sl], cy[:, sl], cx[:, sl], quota)
+        ys.append(y)
+        xs.append(x)
         lv.append(torch.full((B, quota), l, dtype=torch.int32, device=dev))
-        sc.append(torch.where(v >= 1e4, v - 1e4, v))
-        va.append(v > 0.0)
+        sc.append(v)
+        va.append(ok)
     return (torch.cat(lv, 1), torch.cat(ys, 1), torch.cat(xs, 1),
             torch.cat(sc, 1), torch.cat(va, 1))
 
@@ -268,8 +315,18 @@ def detect_canvas(canvas: torch.Tensor, w: int, cfg: OrbConfig):
 # Patch gather: the hand-written CUDA kernel and its plain version
 # ---------------------------------------------------------------------------
 
-# kernel launches made through extract_patches_canvas (read by chip_smoke.py)
+# kernel launches made through extract_patches_canvas (read and reset by
+# chip_smoke.py), and the calls that took the plain version on a CPU tensor.
+# Both are counted under one lock: a prefetch worker thread and the main
+# thread (a relocalization query, the stack extractor) may extract at once.
 patch_gather_launches = 0
+patch_gather_plain_calls = 0
+_count_lock = threading.Lock()
+
+
+def _count(name: str):
+    with _count_lock:
+        globals()[name] += 1
 
 
 def extract_patches_canvas_plain(canvas: torch.Tensor, bi: torch.Tensor,
@@ -299,8 +356,8 @@ def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (csrc/patch_gather.cu) on the current stream or raises."""
-    global patch_gather_launches
     if canvas.device.type == "cpu":
+        _count("patch_gather_plain_calls")
         return extract_patches_canvas_plain(canvas, bi, ys, xs)
     if canvas.device.type != "cuda":
         raise ValueError(f"no patch gather for device {canvas.device}")
@@ -329,7 +386,7 @@ def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
         out.data_ptr(), n, B, H, Wc, stream)
     if rc != 0:
         raise RuntimeError(f"patch_gather kernel launch failed: CUDA error {rc}")
-    patch_gather_launches += 1
+    _count("patch_gather_launches")
     return out
 
 
@@ -417,6 +474,14 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return to_int32_bits(words)
 
 
+def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
+    """(N,8) int32 (or int64) holding uint32 bits -> (N,256) bool."""
+    n = packed.shape[0]
+    shifts = torch.arange(32, device=packed.device, dtype=torch.int64)
+    words = packed.long() & 0xFFFFFFFF
+    return ((words[:, :, None] >> shifts) & 1).reshape(n, 256).bool()
+
+
 def descriptors_from_patches(patches: torch.Tensor,
                              angle: torch.Tensor) -> torch.Tensor:
     """Steered BRIEF-256. The reference evaluates all 30 angle bins as a
@@ -460,6 +525,124 @@ def extract_canvas_multi(imgs: torch.Tensor, cfg: OrbConfig):
     feats = Features(xy=xy0, response=sc, angle=ang.reshape(B, n), octave=lv,
                      desc=desc.reshape(B, n, 8), valid=va)
     return feats, canvas
+
+
+# ---------------------------------------------------------------------------
+# The padded level stack: every level in a full (H, W) plane
+# ---------------------------------------------------------------------------
+
+def build_pyramid_stack(img: torch.Tensor, cfg: OrbConfig):
+    """(H,W) -> ((L,H,W) padded stack, level shapes); level l occupies
+    [:h_l, :w_l] of its plane."""
+    return build_pyramid_stack_multi(img[None], cfg)
+
+
+def build_pyramid_stack_multi(imgs: torch.Tensor, cfg: OrbConfig):
+    """(B,H,W) -> ((B*L,H,W) padded stacks, image-major; level shapes)."""
+    B, h, w = imgs.shape
+    shapes = pyramid_shapes(h, w, cfg)
+    levels = [imgs] + [_resize(imgs, lh, lw) for lh, lw in shapes[1:]]
+    stack = torch.stack([F.pad(l, (0, w - l.shape[2], 0, h - l.shape[1]))
+                         for l in levels], dim=1)            # (B,L,H,W)
+    return stack.reshape(B * cfg.n_levels, h, w).contiguous(), shapes
+
+
+@functools.lru_cache()
+def _level_masks(h: int, w: int, cfg: OrbConfig):
+    """Static (L,H,W) in-bounds masks: a border of max(edge, EXTRACT_R+1)
+    per level, so every keypoint's extraction patch lies inside its
+    level."""
+    shapes = pyramid_shapes(h, w, cfg)
+    e = max(cfg.edge, EXTRACT_R + 1)
+    m = np.zeros((cfg.n_levels, h, w), bool)
+    for l, (lh, lw) in enumerate(shapes):
+        m[l, e:lh - e, e:lw - e] = True
+    return m
+
+
+def detect_stack(stack: torch.Tensor, cfg: OrbConfig, n_images: int = 1):
+    """All-level detection on a padded stack (n_images stacks of L planes
+    on the leading axis). Returns (n_images*N,) tensors indexed into the
+    stack: plane index, y, x, score, valid, each level's quota in turn.
+    Exact top-k per cell (row-major cells), then per plane."""
+    L, h, w = stack.shape
+    dev = stack.device
+    score = fast_score_batched(stack, cfg.min_th)
+    inb = torch.from_numpy(_level_masks(h, w, cfg)).to(dev)
+    if n_images > 1:
+        inb = inb.repeat(n_images, 1, 1)
+    score = _nms3(torch.where(inb, score, torch.zeros_like(score)))
+    rank = torch.where(score >= cfg.ini_th, score + 1e4, score)
+
+    cs = cfg.cell_size
+    gh, gw = -(-h // cs), -(-w // cs)
+    rpad = F.pad(rank, (0, gw * cs - w, 0, gh * cs - h))
+    cells = rpad.reshape(L, gh, cs, gw, cs).permute(0, 1, 3, 2, 4)
+    k = min(cfg.cell_top_k, cs * cs)
+    top_v, top_i = top_k(cells.reshape(L * gh * gw, cs * cs), k)
+    rem = torch.arange(L * gh * gw, device=dev)[:, None] % (gh * gw)
+    cy = (rem // gw) * cs + top_i // cs
+    cx = (rem % gw) * cs + top_i % cs
+    per_lvl = gh * gw * k
+    y, x, v, ok = _level_top(top_v.reshape(L, per_lvl),
+                             cy.reshape(L, per_lvl), cx.reshape(L, per_lvl),
+                             max(cfg.level_quotas()))
+    ys, xs, lv, sc, va = [], [], [], [], []
+    for l, quota in enumerate(cfg.level_quotas() * n_images):
+        ys.append(y[l, :quota])
+        xs.append(x[l, :quota])
+        lv.append(torch.full((quota,), l, dtype=torch.int32, device=dev))
+        sc.append(v[l, :quota])
+        va.append(ok[l, :quota])
+    return (torch.cat(lv), torch.cat(ys).to(torch.int32),
+            torch.cat(xs).to(torch.int32), torch.cat(sc), torch.cat(va))
+
+
+def extract_patches(stack: torch.Tensor, lv, ys, xs) -> torch.Tensor:
+    """One 45x45 raw patch per keypoint from its plane of the (P,H,W)
+    stack, through `extract_patches_canvas` with the plane as the image
+    index: the hand-written kernel on a CUDA tensor, its plain version on a
+    CPU tensor. The reference slices each patch with `dynamic_slice`, which
+    clamps a start >= 0 into [0, H-45] x [0, W-45]: the same as clipping the
+    centre into [22, H-23] x [22, W-23], which is the canvas gather's rule,
+    so the patches are the same bit for bit. (A centre below 22 makes a
+    negative start, which `dynamic_slice` counts from the far end; detection
+    keeps every keypoint at least 23 pixels inside its plane, and the gather
+    follows the reference's Pallas kernel's clip there.)"""
+    return extract_patches_canvas(
+        stack.contiguous(), lv.to(torch.int32).contiguous(),
+        ys.to(torch.int32).contiguous(), xs.to(torch.int32).contiguous())
+
+
+def extract_stack_multi(imgs: torch.Tensor, cfg: OrbConfig):
+    """Extraction for B images (B,H,W) float32 on one (B*L,H,W) stack: FAST,
+    NMS, the top-k, one patch gather for every keypoint of the batch,
+    orientation and steered BRIEF. Returns (Features batched (B,...),
+    stacks (B,L,H,W), None)."""
+    B, h, w = imgs.shape
+    L = cfg.n_levels
+    stack, _ = build_pyramid_stack_multi(imgs, cfg)
+    lv, ys, xs, sc, va = detect_stack(stack, cfg, n_images=B)
+    patches = extract_patches(stack, lv, ys, xs)
+    ang = orientation_from_patches(patches)
+    desc = descriptors_from_patches(patches, ang)
+    octave = lv % L
+    scales = torch.tensor(cfg.level_scales(), dtype=torch.float32,
+                          device=imgs.device)
+    xy0 = torch.stack([xs.to(torch.float32), ys.to(torch.float32)], dim=-1) \
+        * scales[octave.long()][:, None]
+    n = cfg.n_features
+    feats = Features(xy=xy0.reshape(B, n, 2), response=sc.reshape(B, n),
+                     angle=ang.reshape(B, n), octave=octave.reshape(B, n),
+                     desc=desc.reshape(B, n, 8), valid=va.reshape(B, n))
+    return feats, stack.reshape(B, L, h, w), None
+
+
+def extract_stack(img: torch.Tensor, cfg: OrbConfig):
+    """`extract_stack_multi` for one (H,W) image: (Features, (L,H,W) stack,
+    None)."""
+    feats, stacks, _ = extract_stack_multi(img[None], cfg)
+    return Features(*[a[0] for a in feats]), stacks[0], None
 
 
 def extract(img: torch.Tensor, cfg: OrbConfig) -> Features:

@@ -34,6 +34,12 @@ class PoseGraphResult(NamedTuple):
     final_cost: torch.Tensor
 
 
+class Graph4DoFResult(NamedTuple):
+    R: torch.Tensor   # (K,3,3)
+    t: torch.Tensor   # (K,3)
+    final_cost: torch.Tensor
+
+
 class Sim3GraphResult(NamedTuple):
     s: torch.Tensor   # (K,)
     R: torch.Tensor   # (K,3,3)
@@ -155,7 +161,7 @@ def _apply_4dof(x4, up, R, t):
 
 def optimize_pose_graph_4dof(kf_R, kf_t, up, fixed, e_i, e_j, e_R, e_t, e_w,
                              e_valid, n_iters: int = 12,
-                             lam: float = 1e-6) -> PoseGraphResult:
+                             lam: float = 1e-6) -> Graph4DoFResult:
     """4-DoF (yaw about `up` + translation) pose-graph optimization. The
     residual is still the full se(3) log, so pitch/roll disagreements cost,
     but the update can only move yaw and translation (ref VertexPose4DoF)."""
@@ -172,7 +178,7 @@ def optimize_pose_graph_4dof(kf_R, kf_t, up, fixed, e_i, e_j, e_R, e_t, e_w,
 
     (R, t), cost = _optimize(residual, update, 4, (kf_R, kf_t), fixed, e_i,
                              e_j, (e_R, e_t), e_w, e_valid, n_iters, lam)
-    return PoseGraphResult(R=R, t=t, final_cost=cost)
+    return Graph4DoFResult(R=R, t=t, final_cost=cost)
 
 
 # ---------------------------------------------------------------------------

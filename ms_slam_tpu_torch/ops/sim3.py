@@ -60,7 +60,15 @@ def horn(X: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     return s, R, t
 
 
-class Sim3Result(NamedTuple):
+class Sim3RansacResult(NamedTuple):
+    s: torch.Tensor
+    R: torch.Tensor
+    t: torch.Tensor
+    inliers: torch.Tensor     # (N,) bool
+    n_inliers: torch.Tensor
+
+
+class Sim3RefineResult(NamedTuple):
     s: torch.Tensor
     R: torch.Tensor
     t: torch.Tensor
@@ -83,7 +91,7 @@ def draw_hypotheses(valid: torch.Tensor, n_hyp: int,
 
 def sim3_from_hypotheses(model: int, params, Xc1, Xc2, sigma2_1, sigma2_2,
                          valid, idx: torch.Tensor, with_scale: bool = False,
-                         chi2_th: float = 9.21) -> Sim3Result:
+                         chi2_th: float = 9.21) -> Sim3RansacResult:
     """Everything of the RANSAC after the draw: Horn on each row of the
     (H, 3) index table `idx`, reprojection inliers of every hypothesis in
     both cameras, and one Horn refit on the best hypothesis' inliers (kept
@@ -116,16 +124,17 @@ def sim3_from_hypotheses(model: int, params, Xc1, Xc2, sigma2_1, sigma2_2,
     inl_f = count(s_f, R_f, t_f)
     better = inl_f.sum() >= scores[best]
     inl_o = torch.where(better, inl_f, inl)
-    return Sim3Result(s=torch.where(better, s_f, s[best]),
-                      R=torch.where(better, R_f, R[best]),
-                      t=torch.where(better, t_f, t[best]),
-                      inliers=inl_o, n_inliers=inl_o.sum().to(torch.int32))
+    return Sim3RansacResult(s=torch.where(better, s_f, s[best]),
+                            R=torch.where(better, R_f, R[best]),
+                            t=torch.where(better, t_f, t[best]),
+                            inliers=inl_o,
+                            n_inliers=inl_o.sum().to(torch.int32))
 
 
 def sim3_ransac(model: int, params, Xc1, Xc2, sigma2_1, sigma2_2, valid,
                 generator: torch.Generator, n_hyp: int = 128,
                 with_scale: bool = False,
-                chi2_th: float = 9.21) -> Sim3Result:
+                chi2_th: float = 9.21) -> Sim3RansacResult:
     """Estimate S12 mapping camera-2-frame points into camera 1's frame.
 
     Xc1/Xc2: (N,3) the same landmarks in each keyframe's camera frame.
@@ -194,7 +203,7 @@ def _huber_sqrt_w(chi, th2: float):
 
 
 def _refine(res_jacs, mask, with_scale: bool, n_iters: int, th2: float,
-            s0, R0, t0) -> Sim3Result:
+            s0, R0, t0) -> Sim3RefineResult:
     """Huber-weighted Gauss-Newton over the state x from 0:
     x <- x - (J^T W J + 1e-6 I)^-1 J^T W r, the weights recomputed at each x
     and held constant in the step; then the chi2 inlier count. res_jacs:
@@ -221,13 +230,13 @@ def _refine(res_jacs, mask, with_scale: bool, n_iters: int, th2: float,
     _, _, chi, ok = evaluate(x)
     inl = ok & (chi < th2).all(1)
     s, R, t = _unpack(x, s0, R0, t0, with_scale)
-    return Sim3Result(s=s, R=R, t=t, inliers=inl,
-                      n_inliers=inl.sum().to(torch.int32))
+    return Sim3RefineResult(s=s, R=R, t=t, inliers=inl,
+                            n_inliers=inl.sum().to(torch.int32))
 
 
 def sim3_refine(model: int, params, Xc1, Xc2, uv1, uv2, sigma2_1, sigma2_2,
                 mask, s0, R0, t0, with_scale: bool = False,
-                n_iters: int = 10, th2: float = 10.0) -> Sim3Result:
+                n_iters: int = 10, th2: float = 10.0) -> Sim3RefineResult:
     """Iterative Sim(3) Gauss-Newton refinement (ref Optimizer::OptimizeSim3:
     bidirectional reprojection edges with Huber delta sqrt(th2), th2 = 10).
     State [omega(3), dt(3), dlog s] around (s0, R0, t0) mapping camera-2
@@ -244,7 +253,7 @@ def sim3_refine(model: int, params, Xc1, Xc2, uv1, uv2, sigma2_1, sigma2_2,
 
 def sim3_refine_world(model: int, params, Xw, uv, sigma2, mask, s0, R0, t0,
                       with_scale: bool = False, n_iters: int = 10,
-                      th2: float = 10.0) -> Sim3Result:
+                      th2: float = 10.0) -> Sim3RefineResult:
     """Forward-only Sim(3) refinement of S_cw (world -> camera) from
     landmark -> feature correspondences: the matched side gives a landmark
     pool rather than per-feature pairs, so only the projection into the

@@ -165,6 +165,18 @@ def _triangulate_batch(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
     return ms, (sel & (slots < M_cap)).sum().to(I32)
 
 
+def triangulate_with(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
+                     kf_a: int, kf_b: int, kf_ord: int):
+    """New map points by epipolar-matched triangulation between two
+    keyframes (ref LocalMapping::CreateNewMapPoints for one neighbour):
+    `_triangulate_batch` against the one neighbour kf_b. Returns (ms,
+    n_new)."""
+    dev = ms.kf_R.device
+    return _triangulate_batch(
+        ms, calib, orb_cfg, kf_a, torch.tensor([kf_b], device=dev),
+        torch.ones(1, dtype=torch.bool, device=dev), kf_ord)
+
+
 # ---------------------------------------------------------------------------
 # Fusion of duplicate points into a target keyframe
 # ---------------------------------------------------------------------------
@@ -468,6 +480,13 @@ def _cull_impl(ms: M.MapState, current_kf_ord: int, n_obs=None):
                           | (n_obs == 0))
     ms = M.delete_map_points(ms, kill)
     return ms, kill.sum().to(I32), torch.where(kill, 0, n_obs)
+
+
+def cull_map_points(ms: M.MapState, current_kf_ord: int):
+    """MapPointCulling over the whole pool (`_cull_impl` with the counts
+    recomputed): (ms, n_culled)."""
+    ms, n_culled, _ = _cull_impl(ms, current_kf_ord)
+    return ms, n_culled
 
 
 def obs_count_by_octave(ms: M.MapState, n_levels: int = 8):

@@ -10,9 +10,16 @@ they enter the keyframe database as retrieval candidates.
 `sparsify_window` updates `ms` in place (the reference donates it). The
 per-window counters stay on the device until `Sparsifier.stats` is read:
 solving a window reads nothing back to the host.
+
+With `MSSLAM_DUMP_WINDOWS=<dir>` every window's selection instance is
+written to `<dir>/window_NNN.npz` before it is solved (the reference's
+diagnostic, for offline comparison against the exact ILP): the arrays
+obs_pt, obs_cell, obs_ok, cost, pt_idx, pt_valid, req and the scalars lam,
+lam_grid, n_cells.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -212,6 +219,9 @@ class Sparsifier:
         win_mask = np.zeros(self.window, bool)
         win_idx[:len(batch)] = batch
         win_mask[:len(batch)] = True
+        dump_dir = os.environ.get("MSSLAM_DUMP_WINDOWS")
+        if dump_dir:
+            self._dump_window(dump_dir, win_idx, win_mask)
         out = sparsify_window(
             sys.ms, torch.from_numpy(win_idx).to(dev),
             torch.from_numpy(win_mask).to(dev), self.n_req, self.lam,
@@ -230,6 +240,26 @@ class Sparsifier:
         if sys.kf_db is not None:
             for k in batch:
                 sys.kf_db.add(k, sys.ms.kp_desc[k], sys.ms.kp_valid[k])
+
+    def _dump_window(self, dump_dir: str, win_idx, win_mask):
+        """Write the selection instance this window is about to solve."""
+        sys = self.sys
+        dev = sys.device
+        tabs = build_window_tables(
+            sys.ms, torch.from_numpy(win_idx).to(dev),
+            torch.from_numpy(win_mask).to(dev), self.n_req,
+            grid_w=sys.cfg.map.grid_w, grid_h=sys.cfg.map.grid_h,
+            img_w=sys.calib.width, img_h=sys.calib.height,
+            pt_cap=sys.cfg.map.local_mp_cap * 2, n_outkf=8)
+        names = ("obs_pt", "obs_cell", "obs_ok", "cost", "pt_idx",
+                 "pt_valid", "req")
+        os.makedirs(dump_dir, exist_ok=True)
+        np.savez(os.path.join(
+            dump_dir, f"window_{self._stats['windows']:03d}.npz"),
+            **{k: torch.as_tensor(v).cpu().numpy()
+               for k, v in zip(names, tabs)},
+            lam=self.lam, lam_grid=self.lam_grid,
+            n_cells=sys.cfg.map.grid_w * sys.cfg.map.grid_h)
 
     def finish(self):
         """Sparsify everything left (ref MapSparsification.cc:38-52 on

@@ -609,3 +609,66 @@ def test_make_mesh_counts_the_cards():
                                                 torch.device("cuda", 1))
     assert dist_ba.make_mesh().devices == tuple(
         torch.device("cuda", i) for i in range(n))
+
+
+@pytest.mark.cuda
+def test_patch_gather_stack_shape_on_card():
+    """The stack extractor's call: a (2*8, 384, 1248) stack of level planes,
+    2 x 2048 keypoints whose image index is their plane, through
+    `extract_patches` (centres from the low clip edge up and beyond the
+    high ones)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(2)
+    P, H, W, n = 16, 384, 1248, 4096
+    stack = torch.from_numpy(rng.uniform(0, 255, (P, H, W))
+                             .astype(np.float32)).cuda()
+    lv = torch.from_numpy(rng.integers(0, P, n).astype(np.int32)).cuda()
+    ys = torch.from_numpy(rng.integers(22, H + 8, n).astype(np.int32)).cuda()
+    xs = torch.from_numpy(rng.integers(22, W + 8, n).astype(np.int32)).cuda()
+    before = orb.patch_gather_launches
+    out = orb.extract_patches(stack, lv, ys, xs)
+    torch.cuda.synchronize()
+    assert orb.patch_gather_launches == before + 1
+    assert torch.equal(out, orb.extract_patches_canvas_plain(stack, lv, ys,
+                                                             xs))
+
+
+@pytest.mark.cuda
+def test_prefetch_on_side_stream_matches_sync_frontend_on_card():
+    """System._prefetch_frontend on the worker thread (side stream, pinned
+    upload, an event the tracking stream waits on) gives the FrameData of
+    the synchronous frontend on the same frame, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from ms_slam_tpu_torch.models.map_state import MapConfig
+    from ms_slam_tpu_torch.pipeline.frontend import Calib
+    from ms_slam_tpu_torch.pipeline.system import System, SystemConfig
+    from ms_slam_tpu_torch.utils import synth
+    H, W, FX, BL = 240, 320, 260.0, 0.15
+    calib = Calib(model=0, params=(FX, FX, W / 2, H / 2), bf=FX * BL,
+                  width=W, height=H, th_depth=BL * 40, fps=10.0)
+    slam = System(SystemConfig(
+        calib=calib, orb=orb.OrbConfig(n_features=512, n_levels=4),
+        map=MapConfig(max_kf=16, max_mp=2048, n_feat=512,
+                      local_mp_cap=1024)), device="cuda")
+    world = synth.PlaneWorld(np.random.default_rng(0), z_wall=14.0,
+                             y_floor=2.0)
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    l, r = (np.clip(im, 0, 255).astype(np.uint8) for im in
+            world.render_stereo(K, synth.make_trajectory(30, "arc")[3], BL,
+                                H, W))
+    sync = slam._dispatch_frontend(l, r)
+    before = orb.patch_gather_launches
+    slam._next_images = (l, r)
+    slam._prefetch_next()                      # on the worker thread
+    slam._next_images = None
+    frame = slam._take_prefetched()
+    assert slam.prefetch_hits == 1 and slam._side_stream is not None
+    assert orb.patch_gather_launches == before + 1
+    for name, a, b in zip(("feats", "u_right", "depth", "sigma2"), frame,
+                          sync):
+        pairs = zip(a, b) if name == "feats" else [(a, b)]
+        for x, y in pairs:
+            assert torch.equal(x, y), name
+    slam.shutdown()
