@@ -19,6 +19,10 @@ Phases (any failure exits non-zero; there is no CPU path):
      EuRoC shape of phase 13 (two 480x3584 canvases, 2 x 1280) and the
      padded level stack of phase 18's stack extractor (2 x 8 planes of
      384x1248, 2 x 2048 keypoints, each keypoint's image index its plane);
+     then the kernel's bf16 entry point (the canvas of
+     MSSLAM_FORCE_TPU_NUMERICS) the same way on a bf16 canvas at the
+     stereo and the monocular / RGB-D shapes, bit for bit against the plain
+     version's bf16 gather widened to f32;
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -90,8 +94,8 @@ Phases (any failure exits non-zero; there is no CPU path):
      (phase_inertial_loop);
  17. the memory A/B (phase 4's frames with sparsification on and off) and
      pool recycling (the same frames, pools the run overflows)
-     (phase_memory); phases 16 and 17 run in two more processes beside
-     phase 15, on the same card (phase 18 after 17 in its process);
+     (phase_memory); phases 16 and 15 in turn, and 17, 18 and 19 in turn,
+     run in two more processes beside phases 8-13, on the same card;
  18. bench.py's software pipeline (bench.py:35,92-106): phase 4's frames
      and configuration with MSSLAM_PIPELINE_DEPTH=4 (three frames in
      flight, completed two at a time) and next_images on every frame, so
@@ -99,17 +103,25 @@ Phases (any failure exits non-zero; there is no CPU path):
      before it complete; then the padded-stack extractor and its stereo
      matcher at full width on frame 0 (phase_pipeline); run after phase 17
      in its process;
-  then a JSON line of per-kernel results and the final JSON status line.
+ 19. the reference's TPU numerics: phase 4's frames and configuration with
+     MSSLAM_FORCE_TPU_NUMERICS=1, so every canvas is bf16 and every patch
+     gather goes through the kernel's bf16 entry point; then frame 0 on the
+     card against the CPU under the switch (phase_tpu_numerics); run after
+     phase 18 in its process;
+  then a JSON line of per-kernel results (the f32 and the bf16 entry point)
+  and the final JSON status line.
 Every phase from 4 on checks the kernel's launches in its run: one a frame
-(none in phase 14, which renders no frame).
+(none in phase 14, which renders no frame; in phase 19 one bf16 launch a
+frame and no f32 launch).
 
 Options, for work on one part: --kernel-only stops after phase 3,
 --loop-only runs phases 1-3, 7 and 14, --imu-only phases 1-3 and 8,
 --sensors-only phases 1-3 and 9-12, --cli-only phases 1-3 and 13,
 --atlas-only phases 1-3 and 15, --imu-loop-only phases 1-3 and 16,
 --memory-only phases 1-3 and 17, --pipeline-only phases 1-3 and 18 (and
-beside it the same run at depth 2, for a comparison in one call); none of
-them prints a status line.
+beside it the same run at depth 2, for a comparison in one call),
+--tpu-numerics-only phases 1-3 and 19 (and beside it the same frames with
+the f32 canvas); none of them prints a status line.
 --parent DIR also builds the patch_gather.cu of another checkout of this
 repository (same C interface) and times the two kernels in turns in
 phase 3: parent, this, this, parent.
@@ -117,7 +129,9 @@ phase 3: parent, this, this, parent.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -353,20 +367,22 @@ def phase_kernel(parent_dir=None):
           f"(canvas.reshape(-1)[idx], index prebuilt) {library_ms:.4f} ms")
     shapes = [_kernel_at_shape(lib, name, *shape)
               for name, shape in SENSOR_KERNEL_SHAPES]
+    bf16 = [_kernel_at_shape(lib, name, *shape, dtype=torch.bfloat16)
+            for name, shape in BF16_KERNEL_SHAPES]
     return {"max_abs_err": max([err] + [x["max_abs_err"] for x in shapes]),
             "ms": ms, "ms_cold": ms_cold,
             "ms_wrapper_call": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "share_of_bound": bound_ms / ms,
             "share_of_bound_cold": bound_ms / ms_cold,
-            "other_shapes": shapes}
+            "other_shapes": shapes, "bf16": bf16}
 
 
 def _library_ms(canvas, bi, ys, xs, ref, name):
     """Time of the nearest single PyTorch call: the plain version's last
     step alone, `canvas.reshape(-1)[idx]` on an (n, 2025) int64 index built
     beforehand (66 MB at the main path's shape, which the kernel never
-    reads); the port does not call it."""
+    reads), then `.float()` on a bf16 canvas; the port does not call it."""
     from ms_slam_tpu_torch.ops import orb
     B, Hc, Wc = canvas.shape
     R = orb.EXTRACT_R
@@ -375,9 +391,9 @@ def _library_ms(canvas, bi, ys, xs, ref, name):
     ar = torch.arange(2 * R + 1, device=canvas.device)
     idx = base[:, None] + (ar[:, None] * Wc + ar[None, :]).reshape(1, -1)
     flat = canvas.reshape(-1)
-    _check(torch.equal(flat[idx].view(-1, 45, 45), ref),
+    _check(torch.equal(flat[idx].float().view(-1, 45, 45), ref),
            f"{name}: library call")
-    return _run_ms(lambda: flat[idx], n=50, warmup=5)
+    return _run_ms(lambda: flat[idx].float(), n=50, warmup=5)
 
 
 # the kernel's shapes on the monocular / RGB-D path (one 1248x384 image,
@@ -394,41 +410,57 @@ SENSOR_KERNEL_SHAPES = (("mono_rgbd", (1, 384, 5888, 2048)),
                         ("stack", (16, 384, 1248, STACK_QUOTAS)))
 
 
-def _kernel_at_shape(lib, name, B, Hc, Wc, n):
-    """The kernel at another shape of the main paths: bit for bit against
-    the plain version through the wrapper, then its own time (L2 warm and
-    cold) beside its bound and the plain version."""
+# the bf16 entry point (the canvas of MSSLAM_FORCE_TPU_NUMERICS) at the
+# stereo main path's shape and the monocular / RGB-D shape
+BF16_KERNEL_SHAPES = (("stereo", (2, 384, 5888, 2048)),
+                      ("mono_rgbd", (1, 384, 5888, 2048)))
+
+
+def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32):
+    """The kernel at another shape of the main paths (or its bf16 entry
+    point on a bf16 canvas): bit for bit against the plain version (a bf16
+    gather widened to f32) through the wrapper, then its own time (L2 warm
+    and cold) beside its bound and the plain version."""
     from ms_slam_tpu_torch.ops import orb
     canvas, bi, ys, xs = _kernel_inputs(B, Hc, Wc, n)
+    canvas = canvas.to(dtype)
+    bf16 = dtype == torch.bfloat16
+    counter = "patch_gather_bf16_launches" if bf16 else "patch_gather_launches"
+    before = getattr(orb, counter)
     out = orb.extract_patches_canvas(canvas, bi, ys, xs)
-    ref = orb.extract_patches_canvas_plain(canvas, bi, ys, xs)
+    ref = orb.extract_patches_canvas_plain(canvas, bi, ys, xs).float()
     torch.cuda.synchronize()
+    _check(getattr(orb, counter) == before + 1, f"{name}: {counter}")
     n_all = bi.shape[0]
     _check(out.shape == ref.shape == (n_all, 45, 45), f"{name}: patch shape")
     err = float((out - ref).abs().max())
     _check(torch.equal(out, ref), f"{name}: kernel != plain (max abs err "
            f"{err})")
-    n_bytes = 4 * (out.numel() + canvas.numel() + 3 * bi.numel())
+    n_bytes = (4 * (out.numel() + 3 * bi.numel())
+               + canvas.element_size() * canvas.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     buf = torch.empty_like(out)
-    fn = _c_launch(lib.msslam_patch_gather_f32, canvas, bi, ys, xs, buf)
+    fn = _c_launch(lib.msslam_patch_gather_bf16 if bf16
+                   else lib.msslam_patch_gather_f32, canvas, bi, ys, xs, buf)
     fn()
     torch.cuda.synchronize()
     _check(torch.equal(buf, ref), f"{name}: kernel != plain, C entry")
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     ms, ms_cold = _run_ms(fn), _cold_ms(fn, flush)
     plain_ms = _run_ms(lambda: orb.extract_patches_canvas_plain(
-        canvas, bi, ys, xs), n=50, warmup=5)
+        canvas, bi, ys, xs).float(), n=50, warmup=5)
     library_ms = _library_ms(canvas, bi, ys, xs, ref, name)
-    print(f"# patch_gather {B}x{Hc}x{Wc}, {n_all} keypoints ({name}): "
-          f"bit-exact vs "
+    print(f"# patch_gather{'_bf16' if bf16 else ''} {B}x{Hc}x{Wc}, {n_all} "
+          f"keypoints ({name}): bit-exact vs "
           f"plain. Bound {bound_ms:.5f} ms ({n_bytes} bytes at 3.35 TB/s). "
           f"Kernel alone, L2 warm {ms:.4f} ms = {100 * bound_ms / ms:.1f}% "
           f"of the bound; L2 cold {ms_cold:.4f} ms = "
           f"{100 * bound_ms / ms_cold:.1f}%; plain version {plain_ms:.4f} "
           f"ms; nearest library call {library_ms:.4f} ms")
-    return {"shape": name, "canvas": [B, Hc, Wc], "keypoints": n_all,
-            "max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
+    return {"shape": name, "canvas": [B, Hc, Wc],
+            "canvas_dtype": str(dtype).replace("torch.", ""),
+            "keypoints": n_all, "max_abs_err": err, "ms": ms,
+            "ms_cold": ms_cold,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "bytes": n_bytes}
 
@@ -502,7 +534,12 @@ def _close_render_pool():
 def _render_all(name, kwargs, K, poses, kind="stereo"):
     """Render every pose's frame in the worker processes (numpy ray
     casting, ~1 s a stereo frame on one core); each worker builds the same
-    world from the seed."""
+    world from the seed. A phase that runs in one of the script's own
+    processes beside the main one renders in that process, frame after
+    frame (it shares the host with two Systems already)."""
+    import multiprocessing
+    if multiprocessing.parent_process() is not None:
+        return _render_chunk(name, kwargs, K, poses, kind)
     n_workers = RENDER_WORKERS
     chunks = [poses[i::n_workers] for i in range(n_workers)]
     parts = list(_render_pool().map(
@@ -667,7 +704,11 @@ def phase_main_path():
     p4 = {"fps": len(steady) / steady.sum(),
           "p50": np.percentile(frame_s, 50) * 1e3,
           "p95": np.percentile(frame_s, 95) * 1e3,
-          "stages": _pipeline_stages(slam)}
+          "stages": _pipeline_stages(slam),
+          "numerics": {"ate": ate, "path": path, "n_kf": n_kf, "n_mp": n_mp,
+                       "kept": st["kept"], "killed": st["killed"],
+                       "reduction": mem["reduction"],
+                       "frontend_ms": _p50_ms(stage, "frontend")}}
     return {"launches": launches, "slam": slam, "world": world, "K": K,
             "poses": poses, "window": windows_seen[0],
             "ab_on": _ab_arm(slam, ok_frames), "p4": p4}
@@ -2429,7 +2470,7 @@ def _atlas_run(script, cfg, label, card):
             "n_frames": len(script)}
 
 
-def phase_atlas():
+def phase_atlas(circuit=None):
     """The Atlas at full width (phase 15): tests/test_atlas.py's S1 (a new
     map after an irrecoverable loss, then a merge found by place
     recognition) and S2 (a cross-map relocalization), each on a System of
@@ -2462,14 +2503,15 @@ def phase_atlas():
     holding the most keyframes; state OK; the active map's keyframe ATE
     under 2% of their path. (S2, :149-160) a second map created; state OK;
     active_map 0; the newest keyframe labelled with it. One patch-gather
-    launch a frame."""
+    launch a frame. `circuit`: phase 7's (poses, frames), when it ran in
+    this script."""
     import dataclasses
 
     from ms_slam_tpu_torch.pipeline.frontend import Calib
 
     card = _card()
     t_phase = time.perf_counter()
-    poses, frames = _circuit_frames()
+    poses, frames = circuit or _circuit_frames()
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
     w = 2 * np.pi / LOOP_LAP
     restart = _circuit(LOOP_RAMP, LOOP_RADIUS, LOOP_LAP, LOOP_RAMP,
@@ -2994,9 +3036,177 @@ def _corridor_depth(T_wc):
     return depth
 
 
+FLAG = "MSSLAM_FORCE_TPU_NUMERICS"
+
+
+@contextlib.contextmanager
+def _tpu_switch(on: bool):
+    """MSSLAM_FORCE_TPU_NUMERICS set to "1" (on) or unset inside the block,
+    as it was after it."""
+    saved = os.environ.pop(FLAG, None)
+    if on:
+        os.environ[FLAG] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(FLAG, None)
+        if saved is not None:
+            os.environ[FLAG] = saved
+
+
+def _p50_ms(stage, key):
+    return float(np.percentile(np.asarray(stage.get(key, [0.0])), 50)) * 1e3
+
+
+def _drive_numerics(frames, poses, tpu, card):
+    """Phase 4's configuration and driving (a device sync after each frame)
+    over phase 4's frames, with MSSLAM_FORCE_TPU_NUMERICS=1 when `tpu`, else
+    with the switch unset. Both launch counters are reset just before the
+    run and read just after it."""
+    from ms_slam_tpu_torch.ops import orb
+    from ms_slam_tpu_torch.pipeline import system as system_mod
+    from ms_slam_tpu_torch.pipeline.system import System
+    from ms_slam_tpu_torch.utils import evaluate
+    frontend = system_mod.process_stereo_stacked
+    stage = {}
+    _timed(system_mod, "process_stereo_stacked", "frontend", stage)
+    try:
+        with _tpu_switch(tpu):
+            slam = System(_main_cfg(), device="cuda")
+            torch.cuda.synchronize()
+            orb.patch_gather_launches = 0
+            orb.patch_gather_bf16_launches = 0
+            frame_s = []
+            for i, (im_l, im_r) in enumerate(frames):
+                t0 = time.perf_counter()
+                slam.track_stereo(im_l, im_r, 0.1 * i)
+                torch.cuda.synchronize()
+                frame_s.append(time.perf_counter() - t0)
+            slam._flush_pipeline()
+            windows_before = slam._sparsifier.stats["windows"]
+            slam.shutdown()
+            torch.cuda.synchronize()
+            launches = {"f32": orb.patch_gather_launches,
+                        "bf16": orb.patch_gather_bf16_launches}
+    finally:
+        system_mod.process_stereo_stacked = frontend
+    gt_by_ts = {round(0.1 * i, 6): T for i, T in enumerate(poses)}
+    rows = slam.poses_wc()
+    est = np.stack([Twc[:3, 3] for _, Twc in rows])
+    gt = np.stack([gt_by_ts[round(ts, 6)][:3, 3] for ts, _ in rows])
+    st, mem = slam._sparsifier.stats, slam.memory_stats()
+    steady = np.asarray(frame_s[10:])
+    out = {"ok": sum(not e.lost for e in slam.trajectory),
+           "n_rec": len(slam.trajectory), "state": slam.state,
+           "ate": evaluate.ate_rmse(est, gt), "est_finite":
+           bool(np.isfinite(est).all()),
+           "path": float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1))),
+           "n_kf": slam.keyframes_in_map(), "n_mp": slam.map_points_in_map(),
+           "kept": st["kept"], "killed": st["killed"],
+           "reduction": mem["reduction"], "windows_before": windows_before,
+           "frontend_ms": _p50_ms(stage, "frontend"),
+           "fps": len(steady) / steady.sum(), "launches": launches}
+    print(f"# {'TPU numerics (bf16 canvas)' if tpu else 'f32 canvas'} "
+          f"({card}): {out['n_rec']} frames, {out['ok']} OK, state "
+          f"{out['state']}; ATE {out['ate']:.4f} m on {out['path']:.2f} m "
+          f"({100 * out['ate'] / out['path']:.3f}%); keyframes "
+          f"{out['n_kf']}, live map points {out['n_mp']}; selector kept "
+          f"{out['kept']}, killed {out['killed']}, windows before shutdown() "
+          f"{windows_before}, reduction {out['reduction']:.4f}; frontend "
+          f"stage p50 {out['frontend_ms']:.2f} ms; frames/s over frames "
+          f"10-99 {out['fps']:.3f}; kernel launches f32 {launches['f32']}, "
+          f"bf16 {launches['bf16']}")
+    return out
+
+
+def _frame0_card_vs_cpu(frames, cfg):
+    """Frame 0 extracted on the card and on the CPU under the switch: the
+    share of the card's keypoints (level-0 position and octave) the CPU
+    also has, and of descriptors equal on those. Printed, not held."""
+    from ms_slam_tpu_torch.ops import orb
+    pair = torch.from_numpy(np.stack(frames[0])).float()
+    with _tpu_switch(True):
+        fc, cc = orb.extract_canvas_multi(pair.cuda(), cfg.orb)
+        fh, ch = orb.extract_canvas_multi(pair, cfg.orb)
+    _check(cc.dtype == ch.dtype == torch.bfloat16, "frame 0: canvas dtype")
+    canvas_eq = float((cc.cpu() == ch).float().mean())
+    n_card = n_common = n_desc = 0
+    for b in range(pair.shape[0]):
+        def keys(f):
+            xy, oc = f.xy[b].cpu().numpy(), f.octave[b].cpu().numpy()
+            va = f.valid[b].cpu().numpy()
+            return {(float(x), float(y), int(o)): i for i, ((x, y), o, v)
+                    in enumerate(zip(xy, oc, va)) if v}
+        kc, kh = keys(fc), keys(fh)
+        common = [k for k in kc if k in kh]
+        n_card += len(kc)
+        n_common += len(common)
+        dc, dh = fc.desc[b].cpu().numpy(), fh.desc[b].numpy()
+        n_desc += sum(bool((dc[kc[k]] == dh[kh[k]]).all()) for k in common)
+    print(f"# frame 0 under the switch, card against CPU: canvas values "
+          f"equal {canvas_eq:.6f}; keypoints of the card's {n_card} also "
+          f"on the CPU {n_common / max(n_card, 1):.4f}; descriptors equal on "
+          f"those {n_desc / max(n_common, 1):.4f}")
+    return {"canvas_equal": canvas_eq, "keypoints_common":
+            n_common / max(n_card, 1), "desc_equal": n_desc / max(n_common, 1)}
+
+
+def phase_tpu_numerics(corridor=None, p4=None, compare_f32=False):
+    """The reference's TPU numerics on the card (phase 19): phase 4's 100
+    corridor frames and configuration (1248x384, 2048 features, 8 levels,
+    sparsifier live) with MSSLAM_FORCE_TPU_NUMERICS=1, so every frame's
+    canvas is bf16 and its patches come from the kernel's bf16 entry point.
+    Held: 100 of 100 frames OK; ATE under 2% of the path (phase 4's bar);
+    at least one selector window before shutdown(); reduction > 0; exactly
+    100 bf16 launches and no f32 launch in the run. Printed, not held:
+    ATE, keyframes, live map points, points kept and the frontend stage
+    beside phase 4's f32 run on the same frames (`p4`, when it ran in this
+    script; with compare_f32 the f32 run follows here), and on frame 0 the
+    share of the card's keypoints and descriptors equal to the CPU port's
+    under the switch."""
+    card = _card()
+    t_phase = time.perf_counter()
+    poses, frames = corridor or _corridor_frames()
+    run = _drive_numerics(frames, poses, True, card)
+    n = len(frames)
+    _check(run["state"] == "OK" and run["n_rec"] == n and run["ok"] == n,
+           f"tpu numerics: {run['ok']} of {n} frames OK")
+    _check(run["est_finite"] and run["ate"] < 0.02 * run["path"],
+           "tpu numerics: ATE above 2%")
+    _check(run["windows_before"] >= 1,
+           "tpu numerics: no window solved before shutdown()")
+    _check(run["reduction"] > 0, f"tpu numerics: reduction "
+           f"{run['reduction']}")
+    _check(run["launches"] == {"f32": 0, "bf16": n}, f"tpu numerics: "
+           f"launches {run['launches']} for {n} frames")
+    f32 = p4["numerics"] if p4 is not None else None
+    if compare_f32:
+        f32 = _drive_numerics(frames, poses, False, card)
+    if f32 is not None:
+        print(f"# beside it, the f32 canvas on the same frames "
+              f"({'phase 4' if p4 is not None else 'this phase'}): ATE "
+              f"{f32['ate']:.4f} m ({100 * f32['ate'] / f32['path']:.3f}%) "
+              f"against {run['ate']:.4f} m "
+              f"({100 * run['ate'] / run['path']:.3f}%); keyframes "
+              f"{f32['n_kf']} against {run['n_kf']}; live map points "
+              f"{f32['n_mp']} against {run['n_mp']}; points kept "
+              f"{f32['kept']} against {run['kept']}; frontend stage p50 "
+              f"{f32['frontend_ms']:.2f} ms against "
+              f"{run['frontend_ms']:.2f} ms")
+    frame0 = _frame0_card_vs_cpu(frames, _main_cfg())
+    print(f"# phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {"bf16": run, "f32": f32, "frame0": frame0}
+
+
+def phase_inertial_loop_then_atlas(circuit):
+    """Phases 16 and 15 in turn, in one process beside phases 8-13."""
+    return phase_inertial_loop(circuit), phase_atlas(circuit)
+
+
 def phase_memory_then_pipeline(ab_on, corridor, p4):
-    """Phases 17 and 18 in turn, in one process beside phase 15."""
-    return phase_memory(ab_on, corridor), phase_pipeline(corridor, p4)
+    """Phases 17, 18 and 19 in turn, in one process beside phases 8-13."""
+    return (phase_memory(ab_on, corridor), phase_pipeline(corridor, p4),
+            phase_tpu_numerics(corridor, p4))
 
 
 def main():
@@ -3024,6 +3234,10 @@ def main():
     ap.add_argument("--pipeline-only", action="store_true",
                     help="phases 1-3 and 18 only, and phase 18's run at "
                     "depth 2 beside it (no status line is printed)")
+    ap.add_argument("--tpu-numerics-only", action="store_true",
+                    help="phases 1-3 and 19 only, and phase 19's frames "
+                    "with the f32 canvas beside it (no status line is "
+                    "printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
                     "builds its patch_gather.cu and times the two kernels "
@@ -3039,10 +3253,11 @@ def _run(args):
     phase_device()
     phase_build()
     kern = phase_kernel(args.parent)
-    by_phase = {}
+    by_phase, bf16_by_phase = {}, {}
     only = [k for k in ("kernel_only", "loop_only", "imu_only",
                         "sensors_only", "cli_only", "atlas_only",
-                        "imu_loop_only", "memory_only", "pipeline_only")
+                        "imu_loop_only", "memory_only", "pipeline_only",
+                        "tpu_numerics_only")
             if getattr(args, k)]
     part = bool(only)
     t_start = time.perf_counter()
@@ -3058,33 +3273,38 @@ def _run(args):
         by_phase["loop_closing"], slam = phase_loop_closing()
         by_phase["merge_dist_ba"] = phase_merge_and_dist_ba(slam)
         del slam
-    if not part or only == ["imu_only"]:
-        by_phase["inertial"] = phase_inertial()
-    if not part or only == ["sensors_only"]:
-        by_phase["mono"] = phase_mono()
-        by_phase["rgbd"] = phase_rgbd()
-        by_phase["fisheye"] = phase_fisheye()
-        by_phase["mono_inertial"] = phase_mono_inertial()
-    if not part or only == ["cli_only"]:
-        by_phase["cli"] = phase_cli()
-    if not part:
-        # phase 16, and phases 17 and 18 in turn, run in two more processes
-        # beside phase 15: the port is host-bound (the card is busy 12-17%
-        # of a frame), so three Systems share the card with little loss and
-        # the script fits its time. Each process counts its own launches.
-        import multiprocessing
-        from concurrent.futures import ProcessPoolExecutor
-        with ProcessPoolExecutor(
-                2, mp_context=multiprocessing.get_context("spawn")) as ex:
-            loop16 = ex.submit(phase_inertial_loop, _circuit_frames())
+    # phases 16 and 15 in turn, and phases 17, 18 and 19 in turn, run in two
+    # more processes beside phases 8-13: the port is host-bound (the card is
+    # busy 12-17% of a frame), so three Systems share the card with little
+    # loss and the script fits its time. Each process counts its own
+    # launches; the phases there reuse phase 4's and phase 7's frames.
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with (ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+            "spawn")) if not part else contextlib.nullcontext()) as ex:
+        if ex is not None:
+            circuit15 = ex.submit(phase_inertial_loop_then_atlas,
+                                  _circuit_frames())
             memory17 = ex.submit(phase_memory_then_pipeline, ab_on,
                                  _corridor_frames(), p4)
-            by_phase["atlas"] = phase_atlas()
-            by_phase["inertial_loop"] = loop16.result()
-            by_phase["memory"], pipe = memory17.result()
+        if not part or only == ["imu_only"]:
+            by_phase["inertial"] = phase_inertial()
+        if not part or only == ["sensors_only"]:
+            by_phase["mono"] = phase_mono()
+            by_phase["rgbd"] = phase_rgbd()
+            by_phase["fisheye"] = phase_fisheye()
+            by_phase["mono_inertial"] = phase_mono_inertial()
+        if not part or only == ["cli_only"]:
+            by_phase["cli"] = phase_cli()
+        if ex is not None:
+            loop16, by_phase["atlas"] = circuit15.result()
+            by_phase["inertial_loop"] = loop16
+            by_phase["memory"], pipe, tpu = memory17.result()
             by_phase["pipeline"] = pipe["depth4"]["launches"]
             by_phase["pipeline_stack"] = pipe["stack_launches"]
-    elif only == ["atlas_only"]:
+            by_phase["tpu_numerics"] = tpu["bf16"]["launches"]["f32"]
+            bf16_by_phase["tpu_numerics"] = tpu["bf16"]["launches"]["bf16"]
+    if only == ["atlas_only"]:
         by_phase["atlas"] = phase_atlas()
     elif only == ["imu_loop_only"]:
         by_phase["inertial_loop"] = phase_inertial_loop()
@@ -3094,13 +3314,30 @@ def _run(args):
         pipe = phase_pipeline(compare_depth2=True)
         by_phase["pipeline"] = pipe["depth4"]["launches"]
         by_phase["pipeline_stack"] = pipe["stack_launches"]
-    print(f"# phases 4-18 took {time.perf_counter() - t_start:.1f} s")
+    elif only == ["tpu_numerics_only"]:
+        tpu = phase_tpu_numerics(compare_f32=True)
+        by_phase["tpu_numerics"] = tpu["bf16"]["launches"]["f32"]
+        bf16_by_phase["tpu_numerics"] = tpu["bf16"]["launches"]["bf16"]
+    print(f"# phases 4-19 took {time.perf_counter() - t_start:.1f} s")
+    bf16 = kern.pop("bf16")
     print(json.dumps({"kernels": [{
         "name": "patch_gather", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",
         "replaces": "ms_slam_tpu/ops/orb.py:665",
         "launches": sum(by_phase.values()) if by_phase else None,
-        "launches_by_phase": by_phase, **kern}]}))
+        "launches_by_phase": by_phase, **kern}, {
+        "name": "patch_gather_bf16", "route": "cuda",
+        "source": "ms_slam_tpu_torch/csrc/patch_gather.cu",
+        "replaces": "ms_slam_tpu/ops/orb.py:665",
+        "launches": (sum(bf16_by_phase.values()) if bf16_by_phase
+                     else None),
+        "launches_by_phase": bf16_by_phase,
+        "max_abs_err": max(x["max_abs_err"] for x in bf16),
+        **{k: bf16[0][k] for k in ("ms", "ms_cold", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")},
+        "share_of_bound": bf16[0]["bound_ms"] / bf16[0]["ms"],
+        "share_of_bound_cold": bf16[0]["bound_ms"] / bf16[0]["ms_cold"],
+        "other_shapes": bf16[1:]}]}))
     if part:
         return 0
     print(json.dumps({"ok": True, "device": {

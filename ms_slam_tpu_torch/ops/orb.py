@@ -10,9 +10,13 @@ stages on it. Both gather their patches through the hand-written CUDA
 kernel `csrc/patch_gather.cu` (the reference's one Pallas kernel);
 everything else is plain torch.
 
-The canvas stays float32 on the card (the reference's bf16 canvas is a TPU
-bandwidth choice). Descriptors are (N,8) int32 with the reference's uint32
-bits. Parity hazards handled here (see tests/test_torch_orb.py):
+The canvas is float32 unless MSSLAM_FORCE_TPU_NUMERICS=1 asks for the
+reference's TPU numerics (`_tpu_numerics`): then the pyramid is built in
+float32 and cast once to bfloat16, FAST scores on the bf16 canvas and the
+patch gather widens it to float32 (the kernel's bf16 entry point on the
+card). Descriptors are (N,8) int32 with the reference's uint32 bits. Parity
+hazards handled here (see tests/test_torch_orb.py and
+tests/test_torch_tpu_numerics.py):
 
 - resize: `jax.image.resize(..., "bilinear")` antialiases; its weight
   matrices are rebuilt in numpy from JAX's formula (`_resize_weights`);
@@ -257,7 +261,9 @@ def detect_canvas(canvas: torch.Tensor, w: int, cfg: OrbConfig):
     cs = cfg.cell_size
     k = min(cfg.cell_top_k, cs * cs)
     dev = canvas.device
-    score = fast_score_batched(canvas, cfg.min_th)
+    # scored on the canvas's own dtype, then promoted: the +1e4 bonus below
+    # would collapse a bf16 score's ordering (reference orb.py:504-507)
+    score = fast_score_batched(canvas, cfg.min_th).to(torch.float32)
     _, ghc, gwc = _canvas_masks_np(h, w, cfg)
     score = torch.where(_canvas_mask(h, w, cfg, dev)[None], score,
                         torch.zeros_like(score))
@@ -315,11 +321,13 @@ def detect_canvas(canvas: torch.Tensor, w: int, cfg: OrbConfig):
 # Patch gather: the hand-written CUDA kernel and its plain version
 # ---------------------------------------------------------------------------
 
-# kernel launches made through extract_patches_canvas (read and reset by
-# chip_smoke.py), and the calls that took the plain version on a CPU tensor.
-# Both are counted under one lock: a prefetch worker thread and the main
-# thread (a relocalization query, the stack extractor) may extract at once.
+# kernel launches made through extract_patches_canvas, one counter per
+# entry point (f32 and bf16 canvas; read and reset by chip_smoke.py), and
+# the calls that took the plain version on a CPU tensor. All are counted
+# under one lock: a prefetch worker thread and the main thread (a
+# relocalization query, the stack extractor) may extract at once.
 patch_gather_launches = 0
+patch_gather_bf16_launches = 0
 patch_gather_plain_calls = 0
 _count_lock = threading.Lock()
 
@@ -333,7 +341,8 @@ def extract_patches_canvas_plain(canvas: torch.Tensor, bi: torch.Tensor,
                                  ys: torch.Tensor, xs: torch.Tensor
                                  ) -> torch.Tensor:
     """One (2R+1)^2 raw patch per keypoint from its image's canvas, as an
-    index-arithmetic gather from the flattened canvas. Centres clip to
+    index-arithmetic gather from the flattened canvas, in the canvas's
+    dtype (the wrapper widens a bf16 result to float32). Centres clip to
     [R, H-R-1] x [R, Wc-R-1], which is what the reference's dynamic_slice
     start clamp and its Pallas kernel's clip both do."""
     B, H, Wc = canvas.shape
@@ -349,23 +358,31 @@ def extract_patches_canvas_plain(canvas: torch.Tensor, bi: torch.Tensor,
     return flat[base[:, None] + off[None, :]].view(-1, E, E)
 
 
+_ENTRY = {torch.float32: ("msslam_patch_gather_f32", "patch_gather_launches"),
+          torch.bfloat16: ("msslam_patch_gather_bf16",
+                           "patch_gather_bf16_launches")}
+
+
 def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
                            ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """(B,H,Wc) float32 canvas, (n,) int32 image index / row / column ->
-    (n,45,45) float32 patches.
+    """(B,H,Wc) float32 or bfloat16 canvas, (n,) int32 image index / row /
+    column -> (n,45,45) float32 patches (a bf16 canvas is widened, which is
+    exact).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (csrc/patch_gather.cu) on the current stream or raises."""
+    kernel's entry point for its dtype (csrc/patch_gather.cu) on the
+    current stream or raises."""
     if canvas.device.type == "cpu":
         _count("patch_gather_plain_calls")
-        return extract_patches_canvas_plain(canvas, bi, ys, xs)
+        return extract_patches_canvas_plain(canvas, bi, ys, xs).float()
     if canvas.device.type != "cuda":
         raise ValueError(f"no patch gather for device {canvas.device}")
     E = 2 * EXTRACT_R + 1
-    if canvas.dtype != torch.float32 or canvas.dim() != 3 \
+    if canvas.dtype not in _ENTRY or canvas.dim() != 3 \
             or not canvas.is_contiguous():
-        raise ValueError("canvas must be a contiguous (B,H,Wc) float32 "
-                         f"tensor, got {canvas.dtype} {tuple(canvas.shape)}")
+        raise ValueError("canvas must be a contiguous (B,H,Wc) float32 or "
+                         f"bfloat16 tensor, got {canvas.dtype} "
+                         f"{tuple(canvas.shape)}")
     B, H, Wc = canvas.shape
     if H < E or Wc < E:
         raise ValueError(f"canvas {H}x{Wc} is smaller than one {E}x{E} patch")
@@ -379,24 +396,25 @@ def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous ({n},) int32 "
                              f"tensor on {canvas.device}")
     out = torch.empty((n, E, E), dtype=torch.float32, device=canvas.device)
-    lib = _patch_gather_lib()
+    entry, counter = _ENTRY[canvas.dtype]
     stream = torch.cuda.current_stream(canvas.device).cuda_stream
-    rc = lib.msslam_patch_gather_f32(
+    rc = getattr(_patch_gather_lib(), entry)(
         canvas.data_ptr(), bi.data_ptr(), ys.data_ptr(), xs.data_ptr(),
         out.data_ptr(), n, B, H, Wc, stream)
     if rc != 0:
         raise RuntimeError(f"patch_gather kernel launch failed: CUDA error {rc}")
-    _count("patch_gather_launches")
+    _count(counter)
     return out
 
 
 def _patch_gather_lib():
     lib = _native.load("patch_gather")
-    fn = lib.msslam_patch_gather_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for entry, _ in _ENTRY.values():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -500,12 +518,25 @@ def descriptors_from_patches(patches: torch.Tensor,
     return pack_bits((v2 - v1) > 0)
 
 
+def _tpu_numerics() -> bool:
+    """True when MSSLAM_FORCE_TPU_NUMERICS=1: the canvas is cast to bf16
+    after the f32 pyramid, as the reference does on its chip. Read on each
+    call. The reference's other clause, `jax.default_backend() == "tpu"`,
+    has no counterpart: this package never runs on a TPU, so every device
+    keeps the f32 canvas unless the switch is set."""
+    return os.environ.get("MSSLAM_FORCE_TPU_NUMERICS") == "1"
+
+
 def extract_canvas_multi(imgs: torch.Tensor, cfg: OrbConfig):
     """Canvas-packed extraction for B images (B,H,W) float32. Returns
-    (Features batched (B,...), canvases (B,H,Wc))."""
+    (Features batched (B,...), canvases (B,H,Wc)): float32, or bfloat16
+    under `_tpu_numerics()` (pixel values 0..255 are exact in bf16; the
+    resampled levels round once)."""
     B, h, w = imgs.shape
     offs, _, _ = canvas_layout(h, w, cfg)
     canvas = build_canvas_multi(imgs, cfg).contiguous()
+    if _tpu_numerics():
+        canvas = canvas.to(torch.bfloat16)
     lv, ys, xs, sc, va = detect_canvas(canvas, w, cfg)   # (B,N) each
     n = cfg.n_features
     bi = torch.arange(B, device=imgs.device, dtype=torch.int32)[:, None] \

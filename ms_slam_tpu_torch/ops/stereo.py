@@ -147,8 +147,12 @@ def match_stereo_canvas(feats_l: Features, feats_r: Features,
     base = yi * Wc + off
     offs1 = torch.arange(*_OFFS1, device=dev)
     woffs = torch.arange(*_WOFFS, device=dev)
-    lp = canvas_l.reshape(-1)[(base + xi)[:, None] + offs1[None, :]]
-    rwin = canvas_r.reshape(-1)[(base + xri)[:, None] + woffs[None, :]]
+    # the windows are read from the canvas as it is (bf16 under the TPU
+    # numerics) and widened before the means and the 11-tap sums, which
+    # need more than bf16's 8 bits (reference stereo.py:158-163)
+    lp = canvas_l.reshape(-1)[(base + xi)[:, None] + offs1[None, :]].float()
+    rwin = canvas_r.reshape(-1)[(base + xri)[:, None]
+                                + woffs[None, :]].float()
     off_px, s_0 = _sad_offset(lp, rwin, xri, ur0)
     return _gate(feats_l, matched, ur0, off_px, s_0, scales[lo], bf, max_disp)
 

@@ -11,8 +11,9 @@ pyramids, both images of a pair in one batch; then, by sensor:
 - RGB-D: each keypoint reads the registered depth map and gets a virtual
   right coordinate u - bf/d;
 - monocular: features only.
-The canvas stays float32 (the reference's bf16 canvas is a TPU bandwidth
-choice, orb.py:743-744).
+The canvas is float32, or bfloat16 under MSSLAM_FORCE_TPU_NUMERICS=1 (the
+reference's TPU numerics, orb.py:743-744); every frontend hands it on as it
+is, and only `ops/orb.py` and `ops/stereo.py` widen what they read of it.
 """
 from __future__ import annotations
 

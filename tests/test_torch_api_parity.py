@@ -36,8 +36,6 @@ MAPPED = {
         "_load_yaml": "utils/config.py:load_opencv_yaml",
     },
     "ops/orb.py": {
-        "_tpu_numerics": "ops/orb.py:extract_canvas_multi (the f32 canvas "
-                         "on every device)",
         "_patch_kernel_body": "csrc/patch_gather.cu (the hand kernel)",
         "extract_patches_canvas_pallas": "ops/orb.py:extract_patches_canvas",
         "_binned_pattern_matrices": "ops/orb.py:_binned_pair_index_np",

@@ -7,8 +7,8 @@ on a GPU machine that has only PyTorch it runs as
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: bit-exact for the kernel (it is a copy); stated in the test for
-the pose graph.
+Tolerance: bit-exact for the kernel (it is a copy; its bf16 entry point a
+widening copy); stated in the test for the pose graph.
 """
 import numpy as np
 import pytest
@@ -90,6 +90,45 @@ def test_patch_gather_kernel_matches_plain_on_card():
     assert torch.equal(out, orb.extract_patches_canvas_plain(*args))
     with pytest.raises(ValueError):          # f64 canvas: refused, not cast
         orb.extract_patches_canvas(args[0].double(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tail_of_three", "one_keypoint",
+                                  "one_image", "all_centres_outside",
+                                  "vga_canvas"])
+def test_patch_gather_bf16_kernel_cases_on_card(name):
+    """The bf16 entry point (the canvas of MSSLAM_FORCE_TPU_NUMERICS) on the
+    same cases, the canvas cast to bf16: its plain version widened, bit for
+    bit; its own counter moves and the f32 one does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in _case(name)]
+    args[0] = args[0].to(torch.bfloat16)
+    f32, bf16 = orb.patch_gather_launches, orb.patch_gather_bf16_launches
+    out = orb.extract_patches_canvas(*args)
+    torch.cuda.synchronize()
+    assert orb.patch_gather_bf16_launches == bf16 + 1
+    assert orb.patch_gather_launches == f32
+    assert out.dtype == torch.float32
+    assert out.shape == (args[1].shape[0], 45, 45)
+    assert torch.equal(out, orb.extract_patches_canvas_plain(*args).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_patch_gather_refuses_other_dtypes_on_card(dtype):
+    """Only float32 and bfloat16 canvases have an entry point; any other is
+    refused, not cast, and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args = [torch.from_numpy(a).cuda()
+            for a in _inputs(np.random.default_rng(0), n=8)]
+    f32, bf16 = orb.patch_gather_launches, orb.patch_gather_bf16_launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        orb.extract_patches_canvas(args[0].to(dtype), *args[1:])
+    assert (orb.patch_gather_launches,
+            orb.patch_gather_bf16_launches) == (f32, bf16)
 
 
 def test_patch_gather_refuses_other_devices():
