@@ -21,8 +21,9 @@ Phases (any failure exits non-zero; there is no CPU path):
      384x1248, 2 x 2048 keypoints, each keypoint's image index its plane);
      then the kernel's bf16 entry point (the canvas of
      MSSLAM_FORCE_TPU_NUMERICS) the same way on a bf16 canvas at the
-     stereo and the monocular / RGB-D shapes, bit for bit against the plain
-     version's bf16 gather widened to f32;
+     stereo, the monocular / RGB-D, the stereo-fisheye and the EuRoC
+     shapes, bit for bit against the plain version's bf16 gather widened to
+     f32;
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -123,8 +124,10 @@ beside it the same run at depth 2, for a comparison in one call),
 --tpu-numerics-only phases 1-3 and 19 (and beside it the same frames with
 the f32 canvas); none of them prints a status line.
 --parent DIR also builds the patch_gather.cu of another checkout of this
-repository (same C interface) and times the two kernels in turns in
-phase 3: parent, this, this, parent.
+repository (same C interface), holds its entry points bit for bit too and
+times the two in turns in phase 3 (parent, this, this, parent; L2 warm and
+cold): the f32 entry point at the stereo shape, the bf16 one at the stereo
+and the monocular / RGB-D shapes.
 """
 from __future__ import annotations
 
@@ -274,7 +277,8 @@ def _c_launch(c_fn, canvas, bi, ys, xs, out):
 
 def _build_parent(parent_dir):
     """The patch-gather kernel of another checkout (same C interface),
-    built beside this one's for a comparison in one call."""
+    built beside this one's for a comparison in one call: its f32 and its
+    bf16 entry point."""
     import ctypes
     import os
 
@@ -284,7 +288,8 @@ def _build_parent(parent_dir):
     lib = os.path.join(_native.BUILD_DIR, "libpatch_gather_parent.so")
     subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-o", lib, src],
                    check=True, capture_output=True)
-    return ctypes.CDLL(lib).msslam_patch_gather_f32
+    parent = ctypes.CDLL(lib)
+    return parent.msslam_patch_gather_f32, parent.msslam_patch_gather_bf16
 
 
 def phase_kernel(parent_dir=None):
@@ -324,19 +329,15 @@ def phase_kernel(parent_dir=None):
     this()
     torch.cuda.synchronize()
     _check(torch.equal(buf, ref), "kernel != plain through its C entry")
+    parent_f32 = parent_bf16 = None
     if parent_dir is not None:
+        parent_f32, parent_bf16 = _build_parent(parent_dir)
         buf_p = torch.empty_like(out)
-        parent = _c_launch(_build_parent(parent_dir), canvas, bi, ys, xs,
-                           buf_p)
+        parent = _c_launch(parent_f32, canvas, bi, ys, xs, buf_p)
         parent()
         torch.cuda.synchronize()
         _check(torch.equal(buf_p, ref), "the parent's kernel != plain")
-        for who, fn in (("parent", parent), ("this", this), ("this", this),
-                        ("parent", parent)):
-            w, c = _run_ms(fn), _cold_ms(fn, flush)
-            print(f"# in turns, {who:<6}: warm {w:.4f} ms "
-                  f"({100 * bound_ms / w:.1f}% of the bound), cold "
-                  f"{c:.4f} ms ({100 * bound_ms / c:.1f}%)")
+        _in_turns(parent, this, flush, bound_ms, "patch_gather")
     ms = _run_ms(this)
     ms_cold = _cold_ms(this, flush)
     wrapper_ms = _cuda_ms(lambda: orb.extract_patches_canvas(
@@ -367,7 +368,13 @@ def phase_kernel(parent_dir=None):
           f"(canvas.reshape(-1)[idx], index prebuilt) {library_ms:.4f} ms")
     shapes = [_kernel_at_shape(lib, name, *shape)
               for name, shape in SENSOR_KERNEL_SHAPES]
-    bf16 = [_kernel_at_shape(lib, name, *shape, dtype=torch.bfloat16)
+    resident = lib.msslam_patch_gather_bf16_resident_blocks()
+    _check(resident > 0, f"patch_gather_bf16: resident blocks {resident}")
+    print(f"# patch_gather_bf16: {resident} resident blocks on the card (its "
+          "grid at most)")
+    bf16 = [_kernel_at_shape(lib, name, *shape, dtype=torch.bfloat16,
+                             parent=parent_bf16 if name in BF16_IN_TURNS
+                             else None)
             for name, shape in BF16_KERNEL_SHAPES]
     return {"max_abs_err": max([err] + [x["max_abs_err"] for x in shapes]),
             "ms": ms, "ms_cold": ms_cold,
@@ -376,6 +383,20 @@ def phase_kernel(parent_dir=None):
             "bound_by": "bytes", "share_of_bound": bound_ms / ms,
             "share_of_bound_cold": bound_ms / ms_cold,
             "other_shapes": shapes, "bf16": bf16}
+
+
+def _in_turns(parent, this, flush, bound_ms, label):
+    """Two kernels' C entry points timed parent, this, this, parent (L2
+    warm, then cold, each turn); returns the four turns' times."""
+    turns = []
+    for who, fn in (("parent", parent), ("this", this), ("this", this),
+                    ("parent", parent)):
+        w, c = _run_ms(fn), _cold_ms(fn, flush)
+        turns.append({"who": who, "ms": w, "ms_cold": c})
+        print(f"# in turns, {label}, {who:<6}: warm {w:.4f} ms "
+              f"({100 * bound_ms / w:.1f}% of the bound), cold "
+              f"{c:.4f} ms ({100 * bound_ms / c:.1f}%)")
+    return turns
 
 
 def _library_ms(canvas, bi, ys, xs, ref, name):
@@ -411,16 +432,24 @@ SENSOR_KERNEL_SHAPES = (("mono_rgbd", (1, 384, 5888, 2048)),
 
 
 # the bf16 entry point (the canvas of MSSLAM_FORCE_TPU_NUMERICS) at the
-# stereo main path's shape and the monocular / RGB-D shape
+# stereo main path's shape, the monocular / RGB-D shape, and the
+# stereo-fisheye and EuRoC shapes (those frontends build a bf16 canvas under
+# the switch too); with --parent, timed in turns at the first two
 BF16_KERNEL_SHAPES = (("stereo", (2, 384, 5888, 2048)),
-                      ("mono_rgbd", (1, 384, 5888, 2048)))
+                      ("mono_rgbd", (1, 384, 5888, 2048)),
+                      ("fisheye", (2, 512, 2560, 1024)),
+                      ("euroc", (2, 480, 3584, 1280)))
+BF16_IN_TURNS = ("stereo", "mono_rgbd")
 
 
-def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32):
+def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32,
+                     parent=None):
     """The kernel at another shape of the main paths (or its bf16 entry
     point on a bf16 canvas): bit for bit against the plain version (a bf16
     gather widened to f32) through the wrapper, then its own time (L2 warm
-    and cold) beside its bound and the plain version."""
+    and cold) beside its bound, one call of the wrapper and the plain
+    version; with `parent` (another checkout's C entry point for the same
+    dtype), that one bit for bit too and the two timed in turns."""
     from ms_slam_tpu_torch.ops import orb
     canvas, bi, ys, xs = _kernel_inputs(B, Hc, Wc, n)
     canvas = canvas.to(dtype)
@@ -440,13 +469,29 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32):
                + canvas.element_size() * canvas.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     buf = torch.empty_like(out)
-    fn = _c_launch(lib.msslam_patch_gather_bf16 if bf16
-                   else lib.msslam_patch_gather_f32, canvas, bi, ys, xs, buf)
+    entry = (lib.msslam_patch_gather_bf16 if bf16
+             else lib.msslam_patch_gather_f32)
+    fn = _c_launch(entry, canvas, bi, ys, xs, buf)
     fn()
     torch.cuda.synchronize()
     _check(torch.equal(buf, ref), f"{name}: kernel != plain, C entry")
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    turns = None
+    if parent is not None:
+        buf_p = torch.empty_like(out)
+        fn_p = _c_launch(parent, canvas, bi, ys, xs, buf_p)
+        fn_p()
+        torch.cuda.synchronize()
+        _check(torch.equal(buf_p, ref), f"{name}: the parent's kernel != "
+               "plain")
+        turns = _in_turns(fn_p, fn, flush, bound_ms,
+                          f"patch_gather{'_bf16' if bf16 else ''} {name}")
     ms, ms_cold = _run_ms(fn), _cold_ms(fn, flush)
+    # the same method's floor: the entry point on one group of 4 keypoints
+    one_ms = _run_ms(_c_launch(entry, canvas, bi[:4].clone(), ys[:4].clone(),
+                               xs[:4].clone(), buf))
+    wrapper_ms = _cuda_ms(lambda: orb.extract_patches_canvas(
+        canvas, bi, ys, xs))
     plain_ms = _run_ms(lambda: orb.extract_patches_canvas_plain(
         canvas, bi, ys, xs).float(), n=50, warmup=5)
     library_ms = _library_ms(canvas, bi, ys, xs, ref, name)
@@ -455,14 +500,18 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32):
           f"plain. Bound {bound_ms:.5f} ms ({n_bytes} bytes at 3.35 TB/s). "
           f"Kernel alone, L2 warm {ms:.4f} ms = {100 * bound_ms / ms:.1f}% "
           f"of the bound; L2 cold {ms_cold:.4f} ms = "
-          f"{100 * bound_ms / ms_cold:.1f}%; plain version {plain_ms:.4f} "
+          f"{100 * bound_ms / ms_cold:.1f}%; on one group of 4 keypoints "
+          f"{one_ms:.4f} ms; one event pair around one "
+          f"wrapper call {wrapper_ms:.4f} ms; plain version {plain_ms:.4f} "
           f"ms; nearest library call {library_ms:.4f} ms")
     return {"shape": name, "canvas": [B, Hc, Wc],
             "canvas_dtype": str(dtype).replace("torch.", ""),
             "keypoints": n_all, "max_abs_err": err, "ms": ms,
-            "ms_cold": ms_cold,
+            "ms_cold": ms_cold, "ms_one_group": one_ms,
+            "ms_wrapper_call": wrapper_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": n_bytes}
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": n_bytes,
+            **({"in_turns": turns} if turns else {})}
 
 
 def _timed(module, name, key, acc):
@@ -3240,8 +3289,9 @@ def main():
                     "printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
-                    "builds its patch_gather.cu and times the two kernels "
-                    "in turns (parent, this, this, parent)")
+                    "builds its patch_gather.cu and times its f32 and bf16 "
+                    "entry points and this one's in turns (parent, this, "
+                    "this, parent)")
     args = ap.parse_args()
     try:
         return _run(args)
@@ -3333,8 +3383,10 @@ def _run(args):
                      else None),
         "launches_by_phase": bf16_by_phase,
         "max_abs_err": max(x["max_abs_err"] for x in bf16),
-        **{k: bf16[0][k] for k in ("ms", "ms_cold", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")},
+        **{k: bf16[0][k] for k in ("ms", "ms_cold", "ms_one_group",
+                                   "ms_wrapper_call", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")},
+        **{k: bf16[0][k] for k in ("in_turns",) if k in bf16[0]},
         "share_of_bound": bf16[0]["bound_ms"] / bf16[0]["ms"],
         "share_of_bound_cold": bf16[0]["bound_ms"] / bf16[0]["ms_cold"],
         "other_shapes": bf16[1:]}]}))

@@ -42,24 +42,44 @@
 // The bf16 entry point (msslam_patch_gather_bf16) takes the canvas the
 // reference's Pallas kernel is given on its chip: bfloat16, under
 // MSSLAM_FORCE_TPU_NUMERICS. It writes the same float32 patches: each bf16
-// value widened, which is exact (its bits shifted left by 16). A bf16 row
-// of 45 values is 90 B and starts on any 2-byte boundary, so a 4-byte
-// cp.async (which needs a 4-byte-aligned source) cannot stage it. Instead
-// each thread loads one of the 23 aligned 32-bit words that cover a row
-// (whatever the row's parity: 45 values span at most 23 words), widens its
-// two values in registers and stores the ones inside the patch into the
-// same f32 staging area, laid out as the output. The row table, the single
-// bulk write of a whole group and the n % 4 tail are the f32 kernel's.
-// Its bound at the stereo shape: the bf16 canvas 9,043,968 B, the output
-// 33,177,600 B and the indices 49,152 B, 12.6 us at 3.35 TB/s.
-//
+// value widened, which is exact (its bits shifted left by 16). Its bound at
+// the stereo shape: the bf16 canvas 9,043,968 B, the output 33,177,600 B and
+// the indices 49,152 B, 12.6 us at 3.35 TB/s. The output is 78% of the
+// bytes, so the design keeps loads in flight and the stores streaming:
+//  - TMA tile loads. A bf16 row of 45 values is 90 B at any 2-byte offset,
+//    which no 4-byte cp.async can fetch. A tensor map over the canvas,
+//    dims (Wc, H, B), box (56, 45, 1), cuts each patch as one 56 x 45 tile
+//    (112 B rows): one cp.async.bulk.tensor per keypoint, completing on the
+//    stage's mbarrier. A box must start on a 16-byte-aligned column (one
+//    2 bytes off raised an illegal instruction on an H100), so the tile
+//    starts at the patch's first column rounded down to a multiple of 8 and
+//    the patch lies 0-7 columns into it. Past Wc (only near the right clip
+//    edge) TMA fills zeros, which are never copied. The map needs a
+//    16-byte-aligned canvas and Wc % 8 == 0 (its row pitch a multiple of
+//    16 B); the wrapper refuses any other bf16 canvas. The entry point keeps
+//    the last canvas's map and encodes a new one only for a new canvas.
+//  - Widening on the way out. Once a group's four tiles have landed, each
+//    thread widens four consecutive output values from them and writes the
+//    four with one 16-byte evict-first store (a group's 32,400 B start
+//    16-byte aligned). No f32 copy of the group is staged: staging it in
+//    shared memory and writing it with one bulk copy, as the f32 kernel
+//    does, took 0.0195 ms against this design's 0.0170-0.0175 ms at the
+//    stereo shape on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). The
+//    n % 4 tail goes by 4-byte stores.
+//  - Overlap. Blocks are persistent (as many as fit on the card: 20 KB of
+//    tiles a stage, two stages, five blocks an SM; each walks groups
+//    blockIdx.x, blockIdx.x + gridDim.x, ...): while group i is widened and
+//    stored, group i+1's tiles are in flight. No wave tail.
+
 // Plain C interface (loaded with ctypes): launches on the given stream, does
 // not synchronise, allocates nothing, returns a cudaError_t as an int.
 
-#include <cuda_bf16.h>
+#include <cuda.h>              // CUtensorMap and its enums: types only (the
+#include <cuda_bf16.h>         // encoder is looked up: see encode_tiled)
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -167,48 +187,225 @@ patch_gather_kernel(const float* __restrict__ canvas,
   write_group(stage, stage_s, out + (size_t)k0 * kEE, count);
 }
 
-constexpr int kWords = kE / 2 + 1;   // 23 aligned 32-bit words cover a row
+constexpr int kBoxW = 56;                       // tile columns: 112 B rows
+constexpr int kTileBytes = kBoxW * kE * 2;      // 5040 B of bf16 a patch
+constexpr int kTileStride = 5120;               // tiles 128-byte aligned
+constexpr int kStages = 2;
+constexpr int kStageBytes = kGroup * kTileStride;             // 20,480 B
+// after the stages: a barrier (8 B) and the tiles' four column offsets
+// (16 B) a stage, then slack for aligning the dynamic shared memory
+constexpr int kBf16Smem = kStages * kStageBytes + kStages * 24 + 128;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// Warp 0: arms stage barrier `bar` with group g's bytes, then lanes
+// 0..count-1 each start their keypoint's tile load (centre clipped and
+// image index clamped as in fill_row_table). TMA takes a box only from a
+// 16-byte-aligned column (a start 2 bytes off is an illegal instruction on
+// the H100), so a tile starts at the patch's first column rounded down to a
+// multiple of 8; `offs[lane]` keeps the patch's column within its tile.
+__device__ __forceinline__ void load_group(const CUtensorMap* map,
+                                           uint32_t tiles, uint32_t bar,
+                                           int* offs,
+                                           const int* __restrict__ bi,
+                                           const int* __restrict__ ys,
+                                           const int* __restrict__ xs,
+                                           int g, int n, int B, int H,
+                                           int Wc) {
+  const int k0 = g * kGroup;
+  const int count = min(kGroup, n - k0);
+  const int lane = threadIdx.x;
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(count * kTileBytes) : "memory");
+  __syncwarp();
+  if (lane < count) {
+    const int k = k0 + lane;
+    const int b = min(max(bi[k], 0), B - 1);
+    const int y = min(max(ys[k], kR), H - kR - 1);
+    const int x0 = min(max(xs[k], kR), Wc - kR - 1) - kR;
+    offs[lane] = x0 & 7;
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(tiles + lane * kTileStride),
+           "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x0 & ~7),
+           "r"(y - kR), "r"(b)
+        : "memory");
+  }
+}
+
+// the tile element of patch p's column 0 (row 0)
+__device__ __forceinline__ int patch_base(const int* offs, int p) {
+  return p * (kTileStride / 2) + offs[p];
+}
+
+__device__ __forceinline__ float widen(const uint16_t* tiles, int i) {
+  return __uint_as_float((uint32_t)tiles[i] << 16);
+}
 
 __global__ void __launch_bounds__(kThreads)
-patch_gather_bf16_kernel(const __nv_bfloat16* __restrict__ canvas,
+patch_gather_bf16_kernel(const __grid_constant__ CUtensorMap canvas_map,
                          const int* __restrict__ bi,
                          const int* __restrict__ ys,
                          const int* __restrict__ xs,
                          float* __restrict__ out,
                          int n, int B, int H, int Wc) {
-  __shared__ __align__(128) float stage[kGroupFloats];
-  __shared__ int row_src[kRows];
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_s = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  unsigned char* smem = smem_raw + ((128u - (raw_s & 127u)) & 127u);
+  const uint32_t smem_s = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t bar_s = smem_s + kStages * kStageBytes;   // 8 B a stage
+  int* offs_all = reinterpret_cast<int*>(smem + kStages * kStageBytes +
+                                         8 * kStages);    // 4 ints a stage
+  const int groups = (n + kGroup - 1) / kGroup;
+  const int tid = threadIdx.x;
 
-  const int k0 = blockIdx.x * kGroup;
-  const int count = min(kGroup, n - k0);
-  const int rows = fill_row_table(row_src, bi, ys, xs, k0, count, B, H, Wc);
-  const int total = B * H * Wc;        // < 2^31, checked by the wrapper
-
-  // one (row, word) pair per thread step: the word holding canvas elements
-  // e0 (even) and e0 + 1, which are the row's columns c and c + 1
-#pragma unroll 4
-  for (int i = threadIdx.x; i < rows * kWords; i += kThreads) {
-    const int q = i / kWords;
-    const int w = i - q * kWords;
-    const int s = row_src[q];
-    const int par = s & 1;
-    const int e0 = s - par + 2 * w;
-    const int c = 2 * w - par;
-    float lo, hi = 0.f;
-    if (e0 + 1 < total) {
-      const __nv_bfloat162 v =
-          __ldg(reinterpret_cast<const __nv_bfloat162*>(canvas + e0));
-      lo = __low2float(v);
-      hi = __high2float(v);
-    } else {           // the canvas's last element, at an even index
-      lo = __bfloat162float(canvas[e0]);
-    }
-    float* row = stage + q * kE;
-    if (c >= 0) row[c] = lo;
-    if (c + 1 < kE) row[c + 1] = hi;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(bar_s + 8 * s), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&canvas_map)) : "memory");
   }
-  write_group(stage, (uint32_t)__cvta_generic_to_shared(stage),
-              out + (size_t)k0 * kEE, count);
+  __syncthreads();
+  if (tid < 32)
+    for (int s = 0; s < kStages; ++s) {
+      const int g = blockIdx.x + s * gridDim.x;
+      if (g < groups)
+        load_group(&canvas_map, smem_s + s * kStageBytes, bar_s + 8 * s,
+                   offs_all + kGroup * s, bi, ys, xs, g, n, B, H, Wc);
+    }
+  uint64_t evict_first;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(evict_first));
+
+  int i = 0;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x, ++i) {
+    const int s = i % kStages;
+    const int k0 = g * kGroup;
+    const int count = min(kGroup, n - k0);
+    const uint16_t* tiles =
+        reinterpret_cast<const uint16_t*>(smem + s * kStageBytes);
+    const int* offs = offs_all + kGroup * s;
+    float* dst = out + (size_t)k0 * kEE;
+    mbar_wait(bar_s + 8 * s, (i / kStages) & 1);    // the tiles have landed
+    if (count == kGroup) {
+      // one float4 of the output a step: output element e of the group is
+      // patch p, row r, column c, read at tile p's (r, offs[p] + c); the
+      // group's 32,400 B start 16-byte aligned, so each store is one
+      // 16-byte evict-first store (the output is not read again here)
+      for (int q = tid; q < kGroupFloats / 4; q += kThreads) {
+        const int e = 4 * q;
+        int p = e / kEE;
+        int r = (e - p * kEE) / kE;
+        int c = e - p * kEE - r * kE;
+        int base = patch_base(offs, p);
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          v[u] = widen(tiles, base + r * kBoxW + c);
+          if (++c == kE) {
+            c = 0;
+            if (++r == kE) {
+              r = 0;
+              p = min(p + 1, kGroup - 1);   // the group's last element ends p
+              base = patch_base(offs, p);
+            }
+          }
+        }
+        asm volatile(
+            "st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;\n"
+            :: "l"(dst + e), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]),
+               "l"(evict_first)
+            : "memory");
+      }
+    } else {                          // the n % 4 tail: 4-byte stores
+      for (int e = tid; e < count * kEE; e += kThreads) {
+        const int p = e / kEE;
+        const int r = (e - p * kEE) / kE;
+        dst[e] = widen(tiles, patch_base(offs, p) + r * kBoxW +
+                                  (e - p * kEE - r * kE));
+      }
+    }
+    __syncthreads();
+    // every thread is done with this stage's tiles: load group i + kStages
+    const int g_next = g + kStages * gridDim.x;
+    if (tid < 32 && g_next < groups)
+      load_group(&canvas_map, smem_s + s * kStageBytes, bar_s + 8 * s, offs_all
+                 + kGroup * s, bi, ys, xs, g_next, n, B, H, Wc);
+  }
+}
+
+// cuTensorMapEncodeTiled looked up through the CUDA runtime at first use, so
+// the library links nothing but the CUDA runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// What the bf16 entry point keeps per device, under one lock: the kernel's
+// resident blocks (the SM count times the blocks one SM holds at kBf16Smem
+// bytes; the shared-memory attribute is set on first use) and the tensor
+// map of the last canvas, re-encoded only when the canvas's address or
+// shape changes (a map holds nothing else).
+struct Bf16Device {
+  int resident = 0;
+  const void* canvas = nullptr;
+  int B = 0, H = 0, Wc = 0;
+  CUtensorMap map;
+};
+std::mutex bf16_mu;
+Bf16Device bf16_devices[64];
+
+cudaError_t bf16_device(int* dev) {    // bf16_mu held
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  if (*dev >= 64) return cudaErrorInvalidDevice;
+  Bf16Device& d = bf16_devices[*dev];
+  if (d.resident == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaFuncSetAttribute(patch_gather_bf16_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kBf16Smem)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    *dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, patch_gather_bf16_kernel, kThreads, kBf16Smem)) !=
+            cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    d.resident = sms * per_sm;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -231,11 +428,52 @@ extern "C" int msslam_patch_gather_bf16(const __nv_bfloat16* canvas,
                                         const int* xs, float* out, int n,
                                         int B, int H, int Wc, void* stream) {
   if (n <= 0) return 0;
-  if ((reinterpret_cast<uintptr_t>(out) & 15)      // the bulk copy's
-      || (reinterpret_cast<uintptr_t>(canvas) & 3))  // and the word loads'
+  if ((reinterpret_cast<uintptr_t>(out) & 15)        // the 16-byte stores'
+      || (reinterpret_cast<uintptr_t>(canvas) & 15)  // and the tensor map's
+      || (Wc % 8))                                   // (row pitch) alignment
     return (int)cudaErrorMisalignedAddress;
-  const int blocks = (n + kGroup - 1) / kGroup;
-  patch_gather_bf16_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      canvas, bi, ys, xs, out, n, B, H, Wc);
+  CUtensorMap map;
+  int resident, dev;
+  {
+    std::lock_guard<std::mutex> lock(bf16_mu);
+    const cudaError_t e = bf16_device(&dev);
+    if (e != cudaSuccess) return (int)e;
+    Bf16Device& d = bf16_devices[dev];
+    if (d.canvas != canvas || d.B != B || d.H != H || d.Wc != Wc) {
+      const EncodeTiled encode = encode_tiled();
+      if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+      const cuuint64_t dims[3] = {(cuuint64_t)Wc, (cuuint64_t)H,
+                                  (cuuint64_t)B};
+      const cuuint64_t pitch[2] = {2ull * Wc, 2ull * H * Wc};   // bytes
+      const cuuint32_t box[3] = {kBoxW, kE, 1};
+      const cuuint32_t step[3] = {1, 1, 1};
+      d.canvas = nullptr;
+      if (encode(&d.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                 const_cast<__nv_bfloat16*>(canvas), dims, pitch, box, step,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
+      d.canvas = canvas;
+      d.B = B;
+      d.H = H;
+      d.Wc = Wc;
+    }
+    map = d.map;
+    resident = d.resident;
+  }
+  const int groups = (n + kGroup - 1) / kGroup;
+  patch_gather_bf16_kernel<<<min(groups, resident), kThreads, kBf16Smem,
+                             (cudaStream_t)stream>>>(map, bi, ys, xs, out, n,
+                                                     B, H, Wc);
   return (int)cudaGetLastError();
+}
+
+// The bf16 kernel's resident blocks on the current device (its grid at
+// most), or minus a cudaError_t; for reports.
+extern "C" int msslam_patch_gather_bf16_resident_blocks() {
+  std::lock_guard<std::mutex> lock(bf16_mu);
+  int dev;
+  const cudaError_t e = bf16_device(&dev);
+  return e == cudaSuccess ? bf16_devices[dev].resident : -(int)e;
 }

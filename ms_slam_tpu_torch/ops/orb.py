@@ -358,6 +358,22 @@ def extract_patches_canvas_plain(canvas: torch.Tensor, bi: torch.Tensor,
     return flat[base[:, None] + off[None, :]].view(-1, E, E)
 
 
+def _bf16_kernel_layout_error(shape, data_ptr: int):
+    """Why the bf16 entry point cannot take a canvas of this (B,H,Wc) shape
+    at this address, or None. Its TMA tensor map needs a 16-byte-aligned
+    base and a row pitch of a multiple of 16 bytes (Wc % 8 == 0). Every
+    canvas the port builds meets both: `canvas_layout` makes Wc a multiple
+    of lcm(cell, 128), and the bf16 canvas is a fresh allocation."""
+    if data_ptr % 16:
+        return (f"a bf16 canvas must start 16-byte aligned (its TMA tensor "
+                f"map): address {data_ptr:#x} is {data_ptr % 16} bytes off")
+    if shape[-1] % 8:
+        return (f"a bf16 canvas's width must be a multiple of 8 (its rows a "
+                f"multiple of 16 bytes for the TMA tensor map), got "
+                f"{shape[-1]}")
+    return None
+
+
 _ENTRY = {torch.float32: ("msslam_patch_gather_f32", "patch_gather_launches"),
           torch.bfloat16: ("msslam_patch_gather_bf16",
                            "patch_gather_bf16_launches")}
@@ -371,7 +387,8 @@ def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel's entry point for its dtype (csrc/patch_gather.cu) on the
-    current stream or raises."""
+    current stream or raises (a bf16 canvas also when its layout does not
+    suit the kernel's tensor map: `_bf16_kernel_layout_error`)."""
     if canvas.device.type == "cpu":
         _count("patch_gather_plain_calls")
         return extract_patches_canvas_plain(canvas, bi, ys, xs).float()
@@ -389,6 +406,10 @@ def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
     if canvas.numel() >= 2 ** 31:
         raise ValueError("the kernel's offsets are 32-bit: canvas has "
                          f"{canvas.numel()} elements, 2^31 or more")
+    if canvas.dtype == torch.bfloat16:
+        why = _bf16_kernel_layout_error(canvas.shape, canvas.data_ptr())
+        if why is not None:
+            raise ValueError(why)
     n = bi.shape[0]
     for name, t in (("bi", bi), ("ys", ys), ("xs", xs)):
         if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous() \

@@ -102,8 +102,15 @@ def test_patch_gather_bf16_kernel_cases_on_card(name):
     bit; its own counter moves and the f32 one does not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _bf16_gather_on_card(*_case(name))
+
+
+def _bf16_gather_on_card(canvas, bi, ys, xs):
+    """The bf16 entry point on numpy inputs (the canvas cast to bf16 on the
+    card): its own counter moves by one and the f32 one does not, and the
+    output equals the plain version widened, bit for bit."""
     args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
-            for a in _case(name)]
+            for a in (canvas, bi, ys, xs)]
     args[0] = args[0].to(torch.bfloat16)
     f32, bf16 = orb.patch_gather_launches, orb.patch_gather_bf16_launches
     out = orb.extract_patches_canvas(*args)
@@ -111,8 +118,66 @@ def test_patch_gather_bf16_kernel_cases_on_card(name):
     assert orb.patch_gather_bf16_launches == bf16 + 1
     assert orb.patch_gather_launches == f32
     assert out.dtype == torch.float32
-    assert out.shape == (args[1].shape[0], 45, 45)
+    assert out.shape == (bi.shape[0], 45, 45)
     assert torch.equal(out, orb.extract_patches_canvas_plain(*args).float())
+
+
+@pytest.mark.cuda
+def test_patch_gather_bf16_right_clip_edge_on_card():
+    """Every keypoint at the right clip edge (x = Wc - 23, or beyond it and
+    clipped there): each tile's TMA box reaches up to 10 columns past Wc,
+    which the tensor map fills with zeros and the widening never copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(3)
+    canvas, bi, ys, xs = _inputs(rng, n=130)
+    Wc = canvas.shape[2]
+    xs = np.where(np.arange(xs.size) % 3 == 0, Wc + 7, Wc - 23) \
+        .astype(np.int32)
+    _bf16_gather_on_card(canvas, bi, ys, xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(1, 10))
+def test_patch_gather_bf16_small_n_on_card(n):
+    """n = 1-3 (a tail and no whole group), 4 and 8 (whole groups only),
+    5-7 and 9 (whole groups and a tail), on two images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    canvas, bi, ys, xs = _inputs(np.random.default_rng(10 + n), n=8)
+    pick = np.random.default_rng(n).permutation(16)[:n]
+    _bf16_gather_on_card(canvas, bi[pick], ys[pick], xs[pick])
+
+
+@pytest.mark.cuda
+def test_patch_gather_bf16_many_waves_on_card():
+    """8,192 keypoints (2,048 groups): more groups than resident blocks, so
+    every block walks several groups through both of its stages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _bf16_gather_on_card(*_inputs(np.random.default_rng(4), n=4096))
+
+
+@pytest.mark.cuda
+def test_patch_gather_bf16_refuses_misaligned_view_on_card():
+    """A contiguous bf16 view one element into its storage starts 2 bytes
+    off the 16-byte alignment the tensor map needs: refused with
+    ValueError, nothing launched, and no fallback to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    canvas, bi, ys, xs = (torch.from_numpy(a).cuda() for a in
+                          _inputs(np.random.default_rng(5), n=16))
+    flat = torch.empty(canvas.numel() + 8, dtype=torch.bfloat16,
+                       device="cuda")
+    view = flat[1:1 + canvas.numel()].view(canvas.shape)
+    view.copy_(canvas)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    before = (orb.patch_gather_launches, orb.patch_gather_bf16_launches,
+              orb.patch_gather_plain_calls)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        orb.extract_patches_canvas(view, bi, ys, xs)
+    assert (orb.patch_gather_launches, orb.patch_gather_bf16_launches,
+            orb.patch_gather_plain_calls) == before
 
 
 @pytest.mark.cuda
