@@ -123,6 +123,12 @@ Options, for work on one part: --kernel-only stops after phase 3,
 beside it the same run at depth 2, for a comparison in one call),
 --tpu-numerics-only phases 1-3 and 19 (and beside it the same frames with
 the f32 canvas); none of them prints a status line.
+--sync-census [CELL] runs phases 1-2, then 20 frames of a benchmark cell
+(`bench_port/`; the drive by default) after its warm-up, under
+`torch.cuda.set_sync_debug_mode("warn")`: every call that blocks the host
+on the card, counted a frame by the port's line that made it and by the
+innermost span open then (`sync.*` spans are the marked blocking points);
+also the spans a frame and one span's host cost.
 --parent DIR also builds the patch_gather.cu of another checkout of this
 repository (same C interface), holds its entry points bit for bit too and
 times the two in turns in phase 3 (parent, this, this, parent; L2 warm and
@@ -3252,6 +3258,67 @@ def phase_inertial_loop_then_atlas(circuit):
     return phase_inertial_loop(circuit), phase_atlas(circuit)
 
 
+def phase_sync_census(name: str, n_steady: int = 20, seed: int = 18):
+    """A bench cell's syncs a frame, by file:line and innermost span."""
+    import collections
+    import threading
+    import warnings
+    from bench_port.harness import inputs, registry, window
+    from ms_slam_tpu_torch.pipeline.system import System
+    from ms_slam_tpu_torch.utils.trace import Timing, span
+    cell = registry.cell(name)
+    cfg, traffic = registry.config(cell["config"]), registry.traffic(
+        cell["traffic"])
+    cfg_sys, warm = inputs.system_config(cfg), traffic["warmup"]
+    inp = inputs.make(cfg_sys, cfg, traffic, seed, 0, "cuda",
+                      warm["max_frames"] + n_steady + 2)
+    feed = window.Feed(System(cfg_sys, device="cuda"), inp)
+    first = window.warm_up(feed, warm)
+    tm = feed.slam.timing
+    events0 = sum(len(v) for v in tm.values())
+    by_line, by_span = collections.Counter(), collections.Counter()
+
+    def show(message, category, filename, lineno, *a, **k):
+        here = f"{os.path.relpath(filename)}:{lineno}"
+        inner = tm.open[-1][0] if tm.open else "-"
+        if threading.current_thread() is not threading.main_thread():
+            inner = "prefetch worker"       # the next frame's frontend
+        by_line[here, inner.startswith("sync.")] += 1
+        by_span[inner] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(first, first + n_steady):
+                feed.call(i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    feed.slam.shutdown()
+    f = float(n_steady)
+    spans = (sum(len(v) for v in tm.values()) - events0) / f
+    t, n, t0 = Timing(), 200_000, time.perf_counter()
+    for _ in range(n):
+        with span(t, "x"):
+            pass
+    res = {"cell": name, "frames": f, "from_frame": first, "card": _card(),
+           "syncs_per_frame": sum(by_span.values()) / f,
+           "unmarked_per_frame": sum(v for (_, m), v in by_line.items()
+                                     if not m) / f,
+           "by_line": [[w, m, v / f] for (w, m), v in by_line.most_common()],
+           "by_span": [[k, v / f] for k, v in by_span.most_common()],
+           "spans_per_frame": spans,
+           "span_cost_us": (time.perf_counter() - t0) / n * 1e6}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(f"chiprun_out/sync_census.{name}.json", "w") as fh:
+        json.dump(res, fh, indent=1)
+    print(json.dumps({k: v for k, v in res.items() if k != "by_line"}))
+    print("\n".join(f"# {v:8.2f} a frame  {'marked  ' if m else 'unmarked'} "
+                    f"{w}" for w, m, v in res["by_line"][:40]))
+    return res
+
+
 def phase_memory_then_pipeline(ab_on, corridor, p4):
     """Phases 17, 18 and 19 in turn, in one process beside phases 8-13."""
     return (phase_memory(ab_on, corridor), phase_pipeline(corridor, p4),
@@ -3287,6 +3354,10 @@ def main():
                     help="phases 1-3 and 19 only, and phase 19's frames "
                     "with the f32 canvas beside it (no status line is "
                     "printed)")
+    ap.add_argument("--sync-census", nargs="?", metavar="CELL",
+                    const="kitti00-02-stereo.drive",
+                    help="phases 1-2, then a benchmark cell's syncs a frame "
+                    "(default the drive; no status line is printed)")
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout of this repository: phase 3 also "
                     "builds its patch_gather.cu and times its f32 and bf16 "
@@ -3302,6 +3373,9 @@ def main():
 def _run(args):
     phase_device()
     phase_build()
+    if args.sync_census:
+        phase_sync_census(args.sync_census)
+        return 0
     kern = phase_kernel(args.parent)
     by_phase, bf16_by_phase = {}, {}
     only = [k for k in ("kernel_only", "loop_only", "imu_only",

@@ -48,6 +48,7 @@ from ..models.vocab import KeyFrameDatabase, tfidf_scores
 from ..ops import lie, matching, pose_graph, sim3
 from ..ops.indexing import set_at_, top_k
 from ..parallel import dist_ba
+from ..utils.trace import span, sync
 from . import mapping_ops as mo
 from .frontend import Calib
 
@@ -145,7 +146,7 @@ def _verify_pair(ms: M.MapState, calib: Calib, kf_a: int, kf_b,
 def detect_and_verify(ms: M.MapState, calib: Calib, slot: int, present,
                       has_row, rows, generator: torch.Generator,
                       min_score: float, with_scale: bool, k_cands: int = 3,
-                      idx_tables=None):
+                      idx_tables=None, *, timing=None):
     """The per-keyframe place-recognition step (ref
     LoopClosing::NewDetectCommonRegions + DetectNBestCandidates): tf-idf BoW
     scoring over the sparsified database with the query keyframe's own
@@ -158,7 +159,8 @@ def detect_and_verify(ms: M.MapState, calib: Calib, slot: int, present,
     when None). Returns (packed (k,16), group (K,)): per candidate
     [cand_slot, score, n_inl, s, t(3), R(9)], a candidate under the floor
     giving (0, 1, 0, I); group = covisibility mask of the best verified
-    candidate."""
+    candidate. timing: a `Timing` (utils/trace.py) for the candidates'
+    fetch, or None."""
     dev = ms.kf_R.device
     K = ms.kf_valid.shape[0]
     covis = M.covisibility_counts(ms, slot)
@@ -175,10 +177,11 @@ def detect_and_verify(ms: M.MapState, calib: Calib, slot: int, present,
     thr = torch.maximum(floor, torch.where(torch.isfinite(nb_min),
                                            0.75 * nb_min, floor))
     top_s, top_i = top_k(torch.where(mask, scores_all, -inf), k_cands)
-    # sync: one fetch of k flags and slots decides which candidates get
-    # the verification cascade
-    worth = (top_s > thr).cpu().numpy()
-    cands = top_i.cpu().numpy()
+    with sync(timing, "loop_candidates"):
+        # sync: one fetch of k flags and slots decides which candidates get
+        # the verification cascade
+        worth = (top_s > thr).cpu().numpy()
+        cands = top_i.cpu().numpy()
 
     rows_out = []
     for i in range(k_cands):
@@ -411,12 +414,16 @@ class LoopCloser:
                 self.stats["refines"] += 1
                 s0, R0, t0 = h["S_lw"]
                 dev = sys.device
-                packed = refine_hypothesis(
-                    sys.ms, sys.calib, slot, h["match"], h["last_cur"],
-                    torch.as_tensor(s0, dtype=F32, device=dev),
-                    torch.as_tensor(np.asarray(R0), dtype=F32, device=dev),
-                    torch.as_tensor(np.asarray(t0), dtype=F32, device=dev),
-                    with_scale=self.mono, pt_cap=sys.cfg.map.local_mp_cap)
+                with span(sys.timing, "loop_refine"):
+                    packed = refine_hypothesis(
+                        sys.ms, sys.calib, slot, h["match"], h["last_cur"],
+                        torch.as_tensor(s0, dtype=F32, device=dev),
+                        torch.as_tensor(np.asarray(R0), dtype=F32,
+                                        device=dev),
+                        torch.as_tensor(np.asarray(t0), dtype=F32,
+                                        device=dev),
+                        with_scale=self.mono,
+                        pt_cap=sys.cfg.map.local_mp_cap)
                 self._pending = ("refine", slot, _Deferred(packed))
                 return
             self._hyp = None            # an endpoint was culled: drop it
@@ -430,11 +437,12 @@ class LoopCloser:
             self.db._train_now()
         self.stats["queries"] += 1
         dev = sys.device
-        packed, _ = detect_and_verify(
-            sys.ms, sys.calib, slot,
-            torch.from_numpy(self.db.present).to(dev),
-            torch.from_numpy(self.db.has_row).to(dev), self.db.rows,
-            self.gen, 0.05, with_scale=self.mono)
+        with span(sys.timing, "loop_query"):
+            packed, _ = detect_and_verify(
+                sys.ms, sys.calib, slot,
+                torch.from_numpy(self.db.present).to(dev),
+                torch.from_numpy(self.db.has_row).to(dev), self.db.rows,
+                self.gen, 0.05, with_scale=self.mono, timing=sys.timing)
         self._pending = ("query", slot, _Deferred(packed))
 
     def flush(self):
@@ -448,14 +456,16 @@ class LoopCloser:
 
     def _kf_pose_np(self, k: int):
         ms = self.sys.ms
-        # sync: one small fetch
-        pk = torch.cat([ms.kf_R[k].reshape(9), ms.kf_t[k]]).cpu().numpy()
+        with sync(self.sys.timing, "loop_pose"):
+            # sync: one small fetch
+            pk = torch.cat([ms.kf_R[k].reshape(9), ms.kf_t[k]]).cpu().numpy()
         return pk[:9].reshape(3, 3), pk[9:]
 
     def _flush_query(self):
         _, slot, packed = self._pending
         self._pending = None
-        packed = packed.get()
+        with sync(self.sys.timing, "loop_fetch"):
+            packed = packed.get()
         row = packed[int(np.argmax(packed[:, 2]))]
         c, n_inl = int(row[0]), int(row[2])
         if n_inl < MIN_RANSAC_INLIERS or c not in self.sys.kf_order \
@@ -478,7 +488,8 @@ class LoopCloser:
     def _flush_refine(self):
         _, slot, packed = self._pending
         self._pending = None
-        p = packed.get()
+        with sync(self.sys.timing, "loop_fetch"):
+            p = packed.get()
         n_proj, n_opt, n_rep = int(p[0]), int(p[1]), int(p[2])
         h = self._hyp
         if h is None or slot not in self.sys.kf_order:
@@ -625,9 +636,10 @@ class LoopCloser:
         ms = sys.ms
         dev = sys.device
         Wk = Fk = 8
-        # sync: the seam's windows are chosen on the host
-        pk = torch.stack([M.covisibility_counts(ms, cur),
-                          M.covisibility_counts(ms, match)]).cpu().numpy()
+        with sync(sys.timing, "weld_windows"):
+            # sync: the seam's windows are chosen on the host
+            pk = torch.stack([M.covisibility_counts(ms, cur),
+                              M.covisibility_counts(ms, match)]).cpu().numpy()
         kf_valid = ms.kf_valid.cpu().numpy()
         covis_c = np.where(kf_valid, pk[0], 0)
         covis_m = np.where(kf_valid, pk[1], 0)
@@ -660,9 +672,10 @@ class LoopCloser:
         covisibility edges (weight >= loop_covis_min, ref minFeat = 100) and
         the loop edge."""
         sys = self.sys
-        # sync: the graph's edge list is built on the host
-        kf_valid = ms.kf_valid.cpu().numpy()
-        covm = M.covisibility_matrix(ms).cpu().numpy()
+        with sync(sys.timing, "graph_edges"):
+            # sync: the graph's edge list is built on the host
+            kf_valid = ms.kf_valid.cpu().numpy()
+            covm = M.covisibility_matrix(ms).cpu().numpy()
         valid_list = [k for k in sys.kf_order if kf_valid[k]]
         e_i = list(valid_list[1:])
         e_j = list(valid_list[:-1])

@@ -84,6 +84,7 @@ from ..ops import inertial_opt, matching, twoview
 from ..ops.lie import rot_to_quat
 from ..ops.orb import OrbConfig
 from ..utils import viewer
+from ..utils.trace import Timing, span, sync
 from . import mapping_ops as mo
 from . import tracking_ops as to
 from .frontend import (Calib, FrameData, process_mono, process_rgbd,
@@ -261,7 +262,7 @@ class System:
         self.last_kf_frame = 0
         self.n_inliers_ref = 0
         self.trajectory: list[TrajectoryEntry] = []
-        self.timing: dict[str, list] = {}
+        self.timing = Timing()       # host spans and syncs (utils/trace.py)
         self._inflight: deque[InFlight] = deque()
         # the software pipeline (the reference's environment variables)
         self._pipeline_depth = int(os.environ.get("MSSLAM_PIPELINE_DEPTH",
@@ -346,13 +347,12 @@ class System:
         completion, and the next call takes it instead of running its own.
         A prefetch that failed raises RuntimeError on the next call."""
         self.frame_id += 1
-        t0 = time.perf_counter()
-        if self.cfg.frame_draw_every:
-            self._draw_images[self.frame_id] = np.asarray(img_l)
-        frame = self._take_prefetched()
-        if frame is None:
-            frame = self._dispatch_frontend(img_l, img_r)
-        self._tic(t0, "frontend")
+        with span(self.timing, "frontend", self.frame_id):
+            if self.cfg.frame_draw_every:
+                self._draw_images[self.frame_id] = np.asarray(img_l)
+            frame = self._take_prefetched()
+            if frame is None:
+                frame = self._dispatch_frontend(img_l, img_r)
         self._next_images = next_images
         out = self._advance(frame, timestamp)
         self._next_images = None
@@ -462,23 +462,21 @@ class System:
         """Process one registered RGB-D frame (ref System::TrackRGBD); depth
         in metres, same size as the image."""
         self.frame_id += 1
-        t0 = time.perf_counter()
-        frame = process_rgbd(
-            torch.from_numpy(self._as_uint8(img)).to(self.device),
-            torch.as_tensor(np.asarray(depth), dtype=torch.float32,
-                            device=self.device), self.calib, self.orb)
-        self._tic(t0, "frontend")
+        with span(self.timing, "frontend", self.frame_id):
+            frame = process_rgbd(
+                torch.from_numpy(self._as_uint8(img)).to(self.device),
+                torch.as_tensor(np.asarray(depth), dtype=torch.float32,
+                                device=self.device), self.calib, self.orb)
         return self._advance(frame, timestamp)
 
     def track_monocular(self, img, timestamp: float) -> np.ndarray:
         """Process one monocular frame (ref System::TrackMonocular). The map
         scale is arbitrary (median scene depth 1 at the initialization)."""
         self.frame_id += 1
-        t0 = time.perf_counter()
-        frame = process_mono(
-            torch.from_numpy(self._as_uint8(img)).to(self.device),
-            self.calib, self.orb)
-        self._tic(t0, "frontend")
+        with span(self.timing, "frontend", self.frame_id):
+            frame = process_mono(
+                torch.from_numpy(self._as_uint8(img)).to(self.device),
+                self.calib, self.orb)
         return self._advance(frame, timestamp,
                              init_fn=self._monocular_initialization)
 
@@ -494,33 +492,31 @@ class System:
         """Per-frame state machine: in OK the tracking step is dispatched
         and the previous in-flight frame is completed behind it. `init_fn`
         builds the first map (stereo initialization by default)."""
-        t0 = time.perf_counter()
-        if self.state == NOT_INITIALIZED:
-            self._flush_pipeline()
-            (init_fn or self._stereo_initialization)(frame, timestamp)
-            self._imu_frame_rows = None
-            self._tic(t0, "track")
-            return self.current_pose()
-        if self.state in (RECENTLY_LOST, LOST):
-            self._flush_pipeline()
-            self._track_lost(frame, timestamp)
-            self._tic(t0, "track")
-            return self.current_pose()
-        self._dispatch_track(frame, timestamp)
-        self._tic(t0, "track_dispatch")
-        t1 = time.perf_counter()
-        self._prefetch_next()          # the next frontend rides the same gap
-        self._tic(t1, "prefetch_dispatch")
-        t2 = time.perf_counter()
-        while len(self._inflight) > self._pipeline_depth - 1:
-            n = min(self._fetch_batch, len(self._inflight))
-            if n > 1:
-                self._complete_batch(n)
-            else:
-                self._complete_one()
-        self._tic(t2, "complete")
-        self._tic(t0, "track")
-        return self._predicted_pose()
+        tm = self.timing
+        fid = self.frame_id
+        with span(tm, "track", fid):
+            if self.state == NOT_INITIALIZED:
+                self._flush_pipeline()
+                (init_fn or self._stereo_initialization)(frame, timestamp)
+                self._imu_frame_rows = None
+                return self.current_pose()
+            if self.state in (RECENTLY_LOST, LOST):
+                self._flush_pipeline()
+                self._track_lost(frame, timestamp)
+                return self.current_pose()
+            with span(tm, "track_dispatch", fid):
+                self._dispatch_track(frame, timestamp)
+            # the next frontend rides the same gap
+            with span(tm, "prefetch_dispatch", fid + 1):
+                self._prefetch_next()
+            with span(tm, "complete", self._inflight[0].frame_id):
+                while len(self._inflight) > self._pipeline_depth - 1:
+                    n = min(self._fetch_batch, len(self._inflight))
+                    if n > 1:
+                        self._complete_batch(n)
+                    else:
+                        self._complete_one()
+            return self._predicted_pose()
 
     def current_pose(self) -> np.ndarray:
         T = np.eye(4)
@@ -667,9 +663,6 @@ class System:
     # internals
     # ------------------------------------------------------------------
 
-    def _tic(self, t0, key):
-        self.timing.setdefault(key, []).append(time.perf_counter() - t0)
-
     def _stereo_initialization(self, frame: FrameData, timestamp: float):
         """Ref Tracking::StereoInitialization: enough stereo-depth features
         create the origin keyframe with every depth unprojected."""
@@ -722,7 +715,8 @@ class System:
         reconstruction, and a success makes both the first two keyframes,
         the inlier points (median depth 1) their map, followed by one
         local-mapping pass. Every frame before that is recorded lost."""
-        n_valid = int(frame.feats.valid.sum())            # sync: host choice
+        with sync(self.timing, "mono_init_features"):
+            n_valid = int(frame.feats.valid.sum())        # sync: host choice
         if self._mono_init_frame is None:
             if n_valid > 100:
                 self._mono_init_frame = frame
@@ -734,7 +728,9 @@ class System:
         mm = matching.mutual_match(f0.feats.desc, f0.feats.valid,
                                    frame.feats.desc, frame.feats.valid,
                                    max_dist=matching.TH_LOW, nn_ratio=0.9)
-        if int(mm.n_matches) < 100:                       # sync: host choice
+        with sync(self.timing, "mono_init_matches"):
+            n_matches = int(mm.n_matches)                 # sync: host choice
+        if n_matches < 100:
             self._mono_init_frame = frame if n_valid > 100 else None
             self._mono_init_ts = timestamp
             self._mono_init_fid = self.frame_id
@@ -745,7 +741,9 @@ class System:
         res = twoview.reconstruct(
             self.calib.model, self.calib.params_array(self.device),
             f0.feats.xy, xy2, has, self._init_gen)
-        if not bool(res.ok):                              # sync: host choice
+        with sync(self.timing, "mono_init_ok"):
+            ok = bool(res.ok)                             # sync: host choice
+        if not ok:
             self._record(timestamp, lost=True)
             return
 
@@ -857,20 +855,20 @@ class System:
         feeds."""
         cfg = self.cfg
         Wk = cfg.map.window_kf
-        t0 = time.perf_counter()
-        cullable, red_th = self._cull_policy()
-        out = mo.mapping_step(
-            self.ms, self.calib, self.orb, kf_slot, self.kf_ord,
-            n_tri=cfg.n_triangulate_neighbors, window_kf=Wk,
-            n_fixed=cfg.n_fixed_cams, pt_cap=cfg.map.local_mp_cap,
-            ba_iters=cfg.ba_iters, cullable=cullable, red_th=red_th)
-        self.ms = out.ms
-        self._n_obs_dev = out.n_obs
-        self._obs_mask_dev = out.obs_mask
-        self._obs_dirty = False
-        info = out.info.cpu().numpy()        # sync: the one keyframe fetch
-        self.n_mp += int(info[0])
-        self._tic(t0, "mapping_step")
+        with span(self.timing, "mapping_step", self.frame_id):
+            cullable, red_th = self._cull_policy()
+            out = mo.mapping_step(
+                self.ms, self.calib, self.orb, kf_slot, self.kf_ord,
+                n_tri=cfg.n_triangulate_neighbors, window_kf=Wk,
+                n_fixed=cfg.n_fixed_cams, pt_cap=cfg.map.local_mp_cap,
+                ba_iters=cfg.ba_iters, cullable=cullable, red_th=red_th)
+            self.ms = out.ms
+            self._n_obs_dev = out.n_obs
+            self._obs_mask_dev = out.obs_mask
+            self._obs_dirty = False
+            with sync(self.timing, "mapping_info"):
+                info = out.info.cpu().numpy()  # sync: the one keyframe fetch
+            self.n_mp += int(info[0])
         self._window_feeds(kf_slot, info[4:4 + Wk], info[4 + Wk:4 + 2 * Wk])
 
     def _dispatch_track(self, frame: FrameData, timestamp: float):
@@ -911,7 +909,8 @@ class System:
                 torch.as_tensor(self.gravity, dtype=f32, device=dev),
                 self._imu_noise(), *self._Tbc_dev, last_matched,
                 self.ref_kf, cfg.map.local_mp_cap, self._n_obs_dev,
-                self._obs_mask_dev, n_rows=int(valid.sum()))
+                self._obs_mask_dev, n_rows=int(valid.sum()),
+                timing=self.timing)
             self._v_dev, self._bias_dev = out.v, out.bias
             self.imu_frames += 1
         else:
@@ -920,7 +919,8 @@ class System:
             out = to.track_full(
                 self.ms, self.calib, self.orb, frame, R_last, t_last, R_l2,
                 t_l2, self._has_vel, last_matched, self.ref_kf,
-                cfg.map.local_mp_cap, self._n_obs_dev, self._obs_mask_dev)
+                cfg.map.local_mp_cap, self._n_obs_dev, self._obs_mask_dev,
+                timing=self.timing)
         self.ms = out.ms
         self._inflight.append(InFlight(frame_id=self.frame_id,
                                        timestamp=timestamp, frame=frame,
@@ -955,18 +955,22 @@ class System:
 
     def _fetch_stats(self, fls: list) -> list:
         """The stats packs of in-flight frames with ONE device-to-host copy;
-        a deferred keyframe's info rides along and is integrated first."""
-        tf = time.perf_counter()
-        parts = [fl.out.stats for fl in fls]
-        pend = self._pending_kf_info
+        a deferred keyframe's info rides along and is integrated first (its
+        own span, `kf_integrate`: `stats_fetch` times the copy alone)."""
+        tm = self.timing
+        fid = fls[0].frame_id
+        with span(tm, "stats_fetch", fid):
+            parts = [fl.out.stats for fl in fls]
+            pend = self._pending_kf_info
+            if pend is not None:
+                self._pending_kf_info = None
+                parts.append(pend[1])
+            with sync(tm, "stats_fetch"):
+                flat = torch.cat(parts).cpu().numpy()  # sync: the fetch
+            chunks = np.split(flat, np.cumsum([p.numel() for p in parts])[:-1])
         if pend is not None:
-            self._pending_kf_info = None
-            parts.append(pend[1])
-        flat = torch.cat(parts).cpu().numpy()          # sync: the fetch
-        chunks = np.split(flat, np.cumsum([p.numel() for p in parts])[:-1])
-        if pend is not None:
-            self._integrate_kf_info(pend[0], chunks.pop())
-        self._tic(tf, "stats_fetch")
+            with span(tm, "kf_integrate", fid):
+                self._integrate_kf_info(pend[0], chunks.pop())
         return chunks
 
     def _complete_batch(self, n: int):
@@ -1215,7 +1219,8 @@ class System:
         for c in cands:
             out = to.track_by_pnp(self.ms, self.calib, frame, c,
                                   self._reloc_gen)
-            n = int(out.n_inliers)                  # sync: host choice
+            with sync(self.timing, "reloc_pnp"):
+                n = int(out.n_inliers)              # sync: host choice
             if n >= 15 and (best is None or n > best[0]):
                 best = (n, c, out)
         if best is None:
@@ -1229,7 +1234,8 @@ class System:
             ref = to.track_points(self.ms, self.calib, self.orb, frame,
                                   out.R, out.t, obs_c.clamp(min=0),
                                   obs_c >= 0, radius, ratio)
-            n_ref = int(ref.n_inliers)              # sync: host choice
+            with sync(self.timing, "reloc_refine"):
+                n_ref = int(ref.n_inliers)          # sync: host choice
             if n_ref < n_out:
                 break
             out, n_out = ref, n_ref
@@ -1311,36 +1317,35 @@ class System:
         slot = self._alloc_kf_slot()
         if slot is None:
             return
-        t0 = time.perf_counter()
-        out = fl.out
-        cullable, red_th = self._cull_policy()
-        ko = mo.keyframe_step(
-            self.ms, self.calib, self.orb, slot, fl.frame, out.R, out.t,
-            out.matched_mp, self.kf_ord, fl.frame_id, self.calib.th_depth,
-            n_tri=cfg.n_triangulate_neighbors, window_kf=cfg.map.window_kf,
-            n_fixed=cfg.n_fixed_cams, pt_cap=cfg.map.local_mp_cap,
-            ba_iters=cfg.ba_iters, cullable=cullable, red_th=red_th)
-        self.ms = ko.ms
-        self._n_obs_dev = ko.n_obs
-        self._obs_mask_dev = ko.obs_mask
-        self._obs_dirty = False
-        self.kf_ord += 1
-        self.kf_order.append(slot)
-        self.ref_kf = slot
-        self.last_kf_frame = fl.frame_id
-        # the keyframe's observation row is the motion-model candidate set
-        # of the next dispatched frame (cloned: later steps write obs_mp)
-        self.last_matched = self.ms.obs_mp[slot].clone()
-        if self.kf_db is not None:
-            # BoW row at creation (ref LocalMapping::ProcessNewKeyFrame)
-            self.kf_db.set_row(slot, fl.frame.feats.desc,
-                               fl.frame.feats.valid)
-        # the dispatch-time pose is the tracked pose; the BA-refined one
-        # arrives with the deferred info at the next completion
-        self._ref_pose_np = (R_np, t_np)
-        self._flush_pending_info()
-        self._pending_kf_info = (slot, ko.info)
-        self._tic(t0, "keyframe_step")
+        with span(self.timing, "keyframe_step", fl.frame_id):
+            out = fl.out
+            cullable, red_th = self._cull_policy()
+            ko = mo.keyframe_step(
+                self.ms, self.calib, self.orb, slot, fl.frame, out.R, out.t,
+                out.matched_mp, self.kf_ord, fl.frame_id, self.calib.th_depth,
+                n_tri=cfg.n_triangulate_neighbors, window_kf=cfg.map.window_kf,
+                n_fixed=cfg.n_fixed_cams, pt_cap=cfg.map.local_mp_cap,
+                ba_iters=cfg.ba_iters, cullable=cullable, red_th=red_th)
+            self.ms = ko.ms
+            self._n_obs_dev = ko.n_obs
+            self._obs_mask_dev = ko.obs_mask
+            self._obs_dirty = False
+            self.kf_ord += 1
+            self.kf_order.append(slot)
+            self.ref_kf = slot
+            self.last_kf_frame = fl.frame_id
+            # the keyframe's observation row is the motion-model candidate set
+            # of the next dispatched frame (cloned: later steps write obs_mp)
+            self.last_matched = self.ms.obs_mp[slot].clone()
+            if self.kf_db is not None:
+                # BoW row at creation (ref LocalMapping::ProcessNewKeyFrame)
+                self.kf_db.set_row(slot, fl.frame.feats.desc,
+                                   fl.frame.feats.valid)
+            # the dispatch-time pose is the tracked pose; the BA-refined one
+            # arrives with the deferred info at the next completion
+            self._ref_pose_np = (R_np, t_np)
+            self._flush_pending_info()
+            self._pending_kf_info = (slot, ko.info)
         if cfg.use_imu:
             # split the queued IMU rows at this keyframe's frame id (rows of
             # newer frames still in flight stay queued)
@@ -1357,16 +1362,17 @@ class System:
             refit = self._last_gravity_refit
             self._try_imu_init()
             if self._last_gravity_refit != refit:
-                self._tic(t1, f"imu_init_stage{stage}"
-                          if self._imu_stage != stage else "imu_init_refresh")
+                self.timing.add(f"imu_init_stage{stage}"
+                                if self._imu_stage != stage
+                                else "imu_init_refresh",
+                                time.perf_counter() - t1)
             # the visual-inertial window BA on EVERY keyframe once the IMU
             # is initialized (ref LocalMapping.cc:150-155), on top of the
             # visual window BA above: continuous gravity observation keeps
             # pitch/roll drift inside the yaw-only loop gate
             if self.imu_initialized:
-                t2 = time.perf_counter()
-                self._inertial_window_ba(slot)
-                self._tic(t2, "inertial_window_ba")
+                with span(self.timing, "inertial_window_ba", fl.frame_id):
+                    self._inertial_window_ba(slot)
 
     def _cull_policy(self):
         """Keyframe-culling inputs (ref LocalMapping::KeyFrameCulling). The
@@ -1462,7 +1468,10 @@ class System:
         if self._pending_kf_info is not None:
             slot, info = self._pending_kf_info
             self._pending_kf_info = None
-            self._integrate_kf_info(slot, info.cpu().numpy())
+            with span(self.timing, "kf_integrate"):
+                with sync(self.timing, "kf_info"):
+                    info = info.cpu().numpy()   # sync: the deferred info
+                self._integrate_kf_info(slot, info)
 
     # ------------------------------------------------------------------
     # inertial helpers
@@ -1594,9 +1603,10 @@ class System:
                                          prior_a=1e5, with_scale=mono)
         gI = torch.tensor([0.0, 0.0, -9.81], dtype=R_wb.dtype,
                           device=self.device)
-        # sync: the initialization's result comes to the host
-        pk = torch.cat([res.R_wg @ gI, res.bg, res.ba, res.scale[None],
-                        res.vels[-1]]).cpu().numpy()
+        with sync(self.timing, "imu_init"):
+            # sync: the initialization's result comes to the host
+            pk = torch.cat([res.R_wg @ gI, res.bg, res.ba, res.scale[None],
+                            res.vels[-1]]).cpu().numpy()
         g_est = pk[:3].astype(np.float64)
         if not np.all(np.isfinite(g_est)):
             return
@@ -1670,12 +1680,14 @@ class System:
         state. A solve that blew up (e.g. a degenerate window) is dropped
         rather than written. Returns whether it was written."""
         n = len(slots)
-        # sync: one fetch decides the write-back and brings the host state
-        pk = torch.cat([
-            torch.stack([torch.isfinite(a).all() for a in (
-                res.R_wb, res.p_wb, res.vels, res.g, res.bg, res.ba,
-                res.mp_pos)]).to(res.vels.dtype),
-            res.vels.reshape(-1), res.bg, res.ba, res.g]).cpu().numpy()
+        with sync(self.timing, "vi_result"):
+            # sync: one fetch decides the write-back and brings the host
+            # state
+            pk = torch.cat([
+                torch.stack([torch.isfinite(a).all() for a in (
+                    res.R_wb, res.p_wb, res.vels, res.g, res.bg, res.ba,
+                    res.mp_pos)]).to(res.vels.dtype),
+                res.vels.reshape(-1), res.bg, res.ba, res.g]).cpu().numpy()
         if not pk[:7].all():
             return False
         Rbc, pbc = self._Tbc_dev

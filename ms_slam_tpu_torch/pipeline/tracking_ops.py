@@ -13,6 +13,13 @@ they are host branches on `n_inliers`, one device sync each (marked
 `# sync:` below — the places a CUDA-graph capture would have to remove).
 `track_full` updates the point statistics of `ms` in place (the reference
 donates `ms`).
+
+Given a `Timing` (`timing=`), the step records its stages as spans
+(`utils/trace.py`): `track.motion` (with `sync.track_wide` and
+`sync.track_fallback`), `track.local_select`, `track.local`, `track.stats`,
+and in the inertial step `imu.predict` and `pvb_opt`; inside them `search`
+around each `search_by_projection` and `pose_opt` around each
+`pose_optimize`.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from ..ops import imu as imu_ops
 from ..ops import inertial_opt, lie, matching, pnp, pose_opt
 from ..ops.indexing import add_at_, set_at_, top_k
 from ..ops.orb import OrbConfig
+from ..utils.trace import span, sync
 from .frontend import Calib, FrameData
 
 
@@ -40,36 +48,38 @@ def track_points(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
                  frame: FrameData, R0, t0, pt_idx, pt_valid,
                  th_radius: float, nn_ratio: float,
                  rotation_gate: bool = True, opt_rounds: int = 4,
-                 opt_iters: int = 10) -> TrackOut:
+                 opt_iters: int = 10, *, timing=None) -> TrackOut:
     """Project candidate map points into the frame, associate, optimize the
     pose (ref SearchByProjection + PoseOptimization)."""
     params = calib.params_array(R0.device)
     f = frame.feats
     pi = pt_idx.long()
-    pm = matching.search_by_projection(
-        calib.model, params, R0, t0, calib.width, calib.height,
-        ms.mp_pos[pi], ms.mp_normal[pi], ms.mp_min_dist[pi],
-        ms.mp_max_dist[pi], ms.mp_desc[pi], pt_valid & ms.mp_valid[pi],
-        f.xy, f.octave, f.desc, f.valid,
-        th_radius=th_radius, nn_ratio=nn_ratio,
-        scale_factor=orb_cfg.scale_factor, n_levels=orb_cfg.n_levels,
-        pt_angle=ms.mp_angle[pi] if rotation_gate else None,
-        f_angle=f.angle if rotation_gate else None)
+    with span(timing, "search"):
+        pm = matching.search_by_projection(
+            calib.model, params, R0, t0, calib.width, calib.height,
+            ms.mp_pos[pi], ms.mp_normal[pi], ms.mp_min_dist[pi],
+            ms.mp_max_dist[pi], ms.mp_desc[pi], pt_valid & ms.mp_valid[pi],
+            f.xy, f.octave, f.desc, f.valid,
+            th_radius=th_radius, nn_ratio=nn_ratio,
+            scale_factor=orb_cfg.scale_factor, n_levels=orb_cfg.n_levels,
+            pt_angle=ms.mp_angle[pi] if rotation_gate else None,
+            f_angle=f.angle if rotation_gate else None)
     mp_of_feat = torch.where(pm.mp_slot >= 0,
                              pt_idx[pm.mp_slot.clamp(min=0).long()],
                              -1).to(torch.int32)
     has = mp_of_feat >= 0
     X = ms.mp_pos[mp_of_feat.clamp(min=0).long()]
-    res = pose_opt.pose_optimize(
-        calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
-        frame.sigma2, has, n_rounds=opt_rounds, n_iters=opt_iters)
+    with span(timing, "pose_opt"):
+        res = pose_opt.pose_optimize(
+            calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
+            frame.sigma2, has, n_rounds=opt_rounds, n_iters=opt_iters)
     matched = torch.where(res.inlier, mp_of_feat, -1)
     return TrackOut(R=res.R, t=res.t, matched_mp=matched,
                     n_matched=pm.n_matches, n_inliers=res.n_inliers)
 
 
 def track_by_appearance(ms: M.MapState, calib: Calib, frame: FrameData,
-                        kf: int, R0, t0) -> TrackOut:
+                        kf: int, R0, t0, *, timing=None) -> TrackOut:
     """Appearance-only association against one keyframe's landmarks + pose
     optimization (ref Tracking::TrackReferenceKeyFrame)."""
     params = calib.params_array(R0.device)
@@ -83,9 +93,10 @@ def track_by_appearance(ms: M.MapState, calib: Calib, frame: FrameData,
     mp = torch.where(has, kf_obs[mm.idx_b.clamp(min=0).long()], -1)
     has &= mp >= 0
     X = ms.mp_pos[mp.clamp(min=0).long()]
-    res = pose_opt.pose_optimize(
-        calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
-        frame.sigma2, has)
+    with span(timing, "pose_opt"):
+        res = pose_opt.pose_optimize(
+            calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
+            frame.sigma2, has)
     matched = torch.where(res.inlier, mp, -1).to(torch.int32)
     return TrackOut(R=res.R, t=res.t, matched_mp=matched,
                     n_matched=mm.n_matches, n_inliers=res.n_inliers)
@@ -148,30 +159,45 @@ def _predict_const_velocity(R_last, t_last, R_last2, t_last2, has_vel):
 
 def _track_core(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
                 frame: FrameData, R0, t0, R_last, t_last, last_matched,
-                ref_kf: int, local_cap: int, n_obs_all=None, obs_mask=None):
+                ref_kf: int, local_cap: int, obs_mask=None, *, timing=None):
     """Motion-model matching (+ widened retry + appearance fallback), then
-    local-map tracking. Returns (ms, out4, stats_i, best_kf)."""
+    local-map tracking. Returns (out3, out4, local): the cascade's and the
+    local map's tracks, and what `_track_stats` needs of the local map."""
     pt_idx = last_matched.clamp(min=0)
     pt_valid = last_matched >= 0
-    # coarse 2x5 LM budget in the motion-model stage (the local-map stage
-    # re-polishes with the reference's full 4x10)
-    out1 = track_points(ms, calib, orb_cfg, frame, R0, t0, pt_idx, pt_valid,
-                        7.0, 0.9, opt_rounds=2, opt_iters=5)
-    need_wide = bool(out1.n_inliers < 20)                      # sync: lax.cond
-    out2 = track_points(ms, calib, orb_cfg, frame, R0, t0, pt_idx, pt_valid,
-                        14.0, 0.9, opt_rounds=2,
-                        opt_iters=5) if need_wide else out1
-    need_fb = bool(out2.n_inliers < 10)                        # sync: lax.cond
-    out3 = track_by_appearance(ms, calib, frame, ref_kf, R_last,
-                               t_last) if need_fb else out2
+    with span(timing, "track.motion"):
+        # coarse 2x5 LM budget in the motion-model stage (the local-map
+        # stage re-polishes with the reference's full 4x10)
+        out1 = track_points(ms, calib, orb_cfg, frame, R0, t0, pt_idx,
+                            pt_valid, 7.0, 0.9, opt_rounds=2, opt_iters=5,
+                            timing=timing)
+        with sync(timing, "track_wide"):
+            need_wide = bool(out1.n_inliers < 20)              # sync: lax.cond
+        out2 = track_points(ms, calib, orb_cfg, frame, R0, t0, pt_idx,
+                            pt_valid, 14.0, 0.9, opt_rounds=2, opt_iters=5,
+                            timing=timing) if need_wide else out1
+        with sync(timing, "track_fallback"):
+            need_fb = bool(out2.n_inliers < 10)                # sync: lax.cond
+        out3 = track_by_appearance(ms, calib, frame, ref_kf, R_last, t_last,
+                                   timing=timing) if need_fb else out2
 
-    lk_idx, lk_mask = local_keyframes(ms, out3.matched_mp, k=10,
-                                      obs_mask=obs_mask)
-    lmask = M.local_map_mask(ms, lk_idx, lk_mask)
-    l_idx, l_valid = M.gather_local_points(ms, lmask, local_cap)
-    out4 = track_points(ms, calib, orb_cfg, frame, out3.R, out3.t,
-                        l_idx, l_valid, 1.0, 0.8, rotation_gate=False,
-                        opt_rounds=4, opt_iters=10)
+    with span(timing, "track.local_select"):
+        lk_idx, lk_mask = local_keyframes(ms, out3.matched_mp, k=10,
+                                          obs_mask=obs_mask)
+        lmask = M.local_map_mask(ms, lk_idx, lk_mask)
+        l_idx, l_valid = M.gather_local_points(ms, lmask, local_cap)
+    with span(timing, "track.local"):
+        out4 = track_points(ms, calib, orb_cfg, frame, out3.R, out3.t,
+                            l_idx, l_valid, 1.0, 0.8, rotation_gate=False,
+                            opt_rounds=4, opt_iters=10, timing=timing)
+    return out3, out4, (need_wide, need_fb, lk_idx, l_idx, l_valid)
+
+
+def _track_stats(ms, calib, frame, out3, out4, local, R, t, n_inliers,
+                 n_obs_all=None, extra=()):
+    """Point statistics (updated in `ms` in place) and the keyframe-decision
+    counters, packed with the pose. Returns (ms, stats)."""
+    need_wide, need_fb, lk_idx, l_idx, l_valid = local
     ms = update_point_stats(ms, l_idx, l_valid, out4.matched_mp,
                             f_angle=frame.feats.angle)
     n_ct, n_cu = count_trackable_close(calib, frame, out4.matched_mp)
@@ -183,9 +209,9 @@ def _track_core(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
              & ms.kp_valid[best_kf]).sum()
     dev = best_kf.device
     stats_i = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32) for v in (
-        out3.n_inliers, int(need_wide), int(need_fb), out4.n_inliers, n_ct,
+        out3.n_inliers, int(need_wide), int(need_fb), n_inliers, n_ct,
         n_cu, lk_idx[0], l_valid.sum(), n_ref)])
-    return ms, out4, stats_i, best_kf
+    return ms, _pack_stats(ms, R, t, stats_i, best_kf, extra)
 
 
 def _pack_stats(ms, R, t, stats_i, best_kf, extra=()):
@@ -198,26 +224,27 @@ def _pack_stats(ms, R, t, stats_i, best_kf, extra=()):
 def track_full(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
                frame: FrameData, R_last, t_last, R_last2, t_last2, has_vel,
                last_matched, ref_kf: int, local_cap: int, n_obs_all=None,
-               obs_mask=None) -> TrackFullOut:
+               obs_mask=None, *, timing=None) -> TrackFullOut:
     """The per-frame tracking compute: constant-velocity prediction, the
     association cascade, local-map tracking, point statistics (updated in
     `ms` in place) and the keyframe-decision counters."""
     R0, t0 = _predict_const_velocity(R_last, t_last, R_last2, t_last2,
                                      has_vel)
-    ms, out4, stats_i, best_kf = _track_core(
+    out3, out4, local = _track_core(
         ms, calib, orb_cfg, frame, R0, t0, R_last, t_last, last_matched,
-        ref_kf, local_cap, n_obs_all, obs_mask)
+        ref_kf, local_cap, obs_mask, timing=timing)
+    with span(timing, "track.stats"):
+        ms, stats = _track_stats(ms, calib, frame, out3, out4, local, out4.R,
+                                 out4.t, out4.n_inliers, n_obs_all)
     return TrackFullOut(ms=ms, R=out4.R, t=out4.t,
-                        matched_mp=out4.matched_mp,
-                        stats=_pack_stats(ms, out4.R, out4.t, stats_i,
-                                          best_kf))
+                        matched_mp=out4.matched_mp, stats=stats)
 
 
 def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
                    frame: FrameData, R_last, t_last, v_last, bias, imu_rows,
                    imu_valid, gravity, noise, R_bc, t_bc, last_matched,
                    ref_kf: int, local_cap: int, n_obs_all=None, obs_mask=None,
-                   n_rows=None) -> TrackFullOut:
+                   n_rows=None, *, timing=None) -> TrackFullOut:
     """The inertial tracking step: preintegrate the frame's IMU rows,
     predict the pose from the last body state (ref
     Tracking::PredictStateIMU), run the association cascade, then refine
@@ -229,8 +256,8 @@ def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
     n_rows the count of leading valid rows when the caller knows it; noise:
     the four continuous densities [gyro, acc, gyro_walk, acc_walk];
     R_bc/t_bc: the extrinsic T_bc."""
-    preint = imu_ops.integrate(bias, imu_rows, imu_valid, *noise,
-                               n_rows=n_rows)
+    R_cb = R_bc.T
+    p_cb = -R_cb @ t_bc
 
     def body_of_cam(R_cw, t_cw):
         """T_wb = T_wc T_cb from a camera pose T_cw."""
@@ -242,46 +269,48 @@ def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
         R_cw = (R_wb @ R_bc).T
         return R_cw, -R_cw @ (R_wb @ t_bc + p_wb)
 
-    R_cb = R_bc.T
-    p_cb = -R_cb @ t_bc
-    R_wb1, p_wb1 = body_of_cam(R_last, t_last)
+    with span(timing, "imu.predict"):
+        preint = imu_ops.integrate(bias, imu_rows, imu_valid, *noise,
+                                   n_rows=n_rows)
+        R_wb1, p_wb1 = body_of_cam(R_last, t_last)
 
-    # IMU state prediction across the interval
-    dT = preint.dT
-    R_wb2 = lie.orthonormalize(R_wb1 @ preint.dR)
-    v2 = v_last + gravity * dT + R_wb1 @ preint.dV
-    p_wb2 = p_wb1 + v_last * dT + 0.5 * gravity * dT * dT \
-        + R_wb1 @ preint.dP
-    R0, t0 = cam_of_body(R_wb2, p_wb2)
+        # IMU state prediction across the interval
+        dT = preint.dT
+        R_wb2 = lie.orthonormalize(R_wb1 @ preint.dR)
+        v2 = v_last + gravity * dT + R_wb1 @ preint.dV
+        p_wb2 = p_wb1 + v_last * dT + 0.5 * gravity * dT * dT \
+            + R_wb1 @ preint.dP
+        R0, t0 = cam_of_body(R_wb2, p_wb2)
 
-    ms, out4, stats_i, best_kf = _track_core(
+    out3, out4, local = _track_core(
         ms, calib, orb_cfg, frame, R0, t0, R_last, t_last, last_matched,
-        ref_kf, local_cap, n_obs_all, obs_mask)
+        ref_kf, local_cap, obs_mask, timing=timing)
 
-    # joint [T_wb, v, bg, ba] refinement seeded at the visual solution
-    R_wb4, p_wb4 = body_of_cam(out4.R, out4.t)
-    has = out4.matched_mp >= 0
-    X = ms.mp_pos[out4.matched_mp.clamp(min=0).long()]
-    pvb = inertial_opt.pose_vel_bias_optimize(
-        calib.model, calib.params_array(R0.device), calib.bf, R_bc, t_bc,
-        R_wb1, p_wb1, v_last, bias[:3], bias[3:], preint, R_wb4, p_wb4, v2,
-        X, frame.feats.xy, frame.u_right, frame.sigma2, has,
-        walk_info=torch.full((6,), 1e4, dtype=R_wb4.dtype,
-                             device=R_wb4.device), g=gravity)
-    # the joint solution is taken when it keeps at least as many inliers
-    use = (pvb.n_inliers >= out4.n_inliers) & (dT > 0)
-    R_c, t_c = cam_of_body(pvb.R_wb, pvb.p_wb)
-    R_n = torch.where(use, R_c, out4.R)
-    t_n = torch.where(use, t_c, out4.t)
-    v_n = torch.where(use, pvb.v, v2)
-    bias_n = torch.where(use, torch.cat([pvb.bg, pvb.ba]), bias)
-    matched = torch.where(use & ~pvb.inlier, -1, out4.matched_mp)
-    stats_i = stats_i.clone()
-    stats_i[3] = torch.where(use, pvb.n_inliers, out4.n_inliers)
+    with span(timing, "pvb_opt"):
+        # joint [T_wb, v, bg, ba] refinement seeded at the visual solution
+        R_wb4, p_wb4 = body_of_cam(out4.R, out4.t)
+        has = out4.matched_mp >= 0
+        X = ms.mp_pos[out4.matched_mp.clamp(min=0).long()]
+        pvb = inertial_opt.pose_vel_bias_optimize(
+            calib.model, calib.params_array(R0.device), calib.bf, R_bc, t_bc,
+            R_wb1, p_wb1, v_last, bias[:3], bias[3:], preint, R_wb4, p_wb4,
+            v2, X, frame.feats.xy, frame.u_right, frame.sigma2, has,
+            walk_info=torch.full((6,), 1e4, dtype=R_wb4.dtype,
+                                 device=R_wb4.device), g=gravity)
+        # the joint solution is taken when it keeps at least as many inliers
+        use = (pvb.n_inliers >= out4.n_inliers) & (dT > 0)
+        R_c, t_c = cam_of_body(pvb.R_wb, pvb.p_wb)
+        R_n = torch.where(use, R_c, out4.R)
+        t_n = torch.where(use, t_c, out4.t)
+        v_n = torch.where(use, pvb.v, v2)
+        bias_n = torch.where(use, torch.cat([pvb.bg, pvb.ba]), bias)
+        matched = torch.where(use & ~pvb.inlier, -1, out4.matched_mp)
+        n_inl = torch.where(use, pvb.n_inliers, out4.n_inliers)
+    with span(timing, "track.stats"):
+        ms, stats = _track_stats(ms, calib, frame, out3, out4, local, R_n,
+                                 t_n, n_inl, n_obs_all, extra=(v_n, bias_n))
     return TrackFullOut(ms=ms, R=R_n, t=t_n, matched_mp=matched,
-                        stats=_pack_stats(ms, R_n, t_n, stats_i, best_kf,
-                                          extra=(v_n, bias_n)),
-                        v=v_n, bias=bias_n)
+                        stats=stats, v=v_n, bias=bias_n)
 
 
 def local_keyframes(ms: M.MapState, matched_mp, k: int, obs_mask=None):

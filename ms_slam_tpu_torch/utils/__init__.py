@@ -2,4 +2,5 @@
 module of the same name: settings files (`config`), map checkpoints
 (`checkpoint`), dataset readers (`datasets`) on the native decode/rectify
 prefetch runtime (`native`), the headless viewer (`viewer`), rendered test
-worlds (`synth`) and trajectory evaluation (`evaluate`)."""
+worlds (`synth`) and trajectory evaluation (`evaluate`); and the port's own
+host spans and sync counts (`trace`)."""

@@ -25,6 +25,7 @@ MAPPED = {
         "_observer_mask_jit": "models/map_state.py:observer_mask",
         "_delete_one_kf": "pipeline/system.py:System._evict_oldest_kf",
         "matching_TH_LOW": "ops/matching.py:TH_LOW",
+        "System._tic": "utils/trace.py:span (the System's spans)",
     },
     "pipeline/loop_closing.py": {
         "_verify_pair_impl": "pipeline/loop_closing.py:_verify_pair",
