@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero; there is no CPU path):
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the hand-written CUDA kernels from the sources in the
-     checkout (ms_slam_tpu_torch/csrc) into ms_slam_tpu_torch/_build;
+     checkout (ms_slam_tpu_torch/csrc) into ms_slam_tpu_torch/_build and
+     prints what `nvcc -Xptxas -v` said of each (registers, spills);
   3. kernel vs plain: the patch-gather kernel against its plain PyTorch
      version at the stereo main path's shapes, bit for bit; then the
      kernel's own time (200 launches of its C entry point between two CUDA
@@ -23,7 +24,12 @@ Phases (any failure exits non-zero; there is no CPU path):
      MSSLAM_FORCE_TPU_NUMERICS) the same way on a bf16 canvas at the
      stereo, the monocular / RGB-D, the stereo-fisheye and the EuRoC
      shapes, bit for bit against the plain version's bf16 gather widened to
-     f32;
+     f32; then the pose_vel_bias kernel (inertial_opt.pose_vel_bias_optimize
+     on the card) at the corridor's 1,280 matches, against its plain
+     version within tests/test_torch_pvb_kernel.py's tolerances, and its
+     time alone (200 launches of its C entry point between two events, L2
+     warm; one event pair a launch after a 256 MiB write, L2 cold) beside
+     the plain version's and the wrapper's, each between events;
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -109,11 +115,14 @@ Phases (any failure exits non-zero; there is no CPU path):
      gather goes through the kernel's bf16 entry point; then frame 0 on the
      card against the CPU under the switch (phase_tpu_numerics); run after
      phase 18 in its process;
-  then a JSON line of per-kernel results (the f32 and the bf16 entry point)
-  and the final JSON status line.
+  then a JSON line of per-kernel results (the f32 and the bf16 entry point,
+  and the pose_vel_bias kernel) and the final JSON status line.
 Every phase from 4 on checks the kernel's launches in its run: one a frame
 (none in phase 14, which renders no frame; in phase 19 one bf16 launch a
-frame and no f32 launch).
+frame and no f32 launch). The phases that track with an IMU (8, 12, 13 and
+16) also set the pose_vel_bias kernel's count to 0 before their run and
+check one launch an inertial step after it; phase 8 then holds the kernel
+against the plain version on its last inertial frame's inputs.
 
 Options, for work on one part: --kernel-only stops after phase 3,
 --loop-only runs phases 1-3, 7 and 14, --imu-only phases 1-3 and 8,
@@ -177,14 +186,16 @@ def phase_device():
 
 def phase_build():
     from ms_slam_tpu_torch.ops import _native
-    t0 = time.perf_counter()
-    _native.build("patch_gather")
-    _native.load("patch_gather")
-    print(f"# build: patch_gather.cu in {time.perf_counter() - t0:.2f} s; "
-          "nvcc -Xptxas -v said:")
-    for line in _native.build_log.get("patch_gather", "").splitlines():
-        if "ptxas info" in line and "Compiling" not in line:
-            print(f"#   {line.strip()}")
+    for name in ("patch_gather", "pose_vel_bias"):
+        t0 = time.perf_counter()
+        _native.build(name)
+        _native.load(name)
+        print(f"# build: {name}.cu in {time.perf_counter() - t0:.2f} s; "
+              "nvcc -Xptxas -v said:")
+        for line in _native.build_log.get(name, "").splitlines():
+            if ("ptxas info" in line and "Compiling" not in line) \
+                    or "spill" in line:
+                print(f"#   {line.strip()}")
 
 
 def _cuda_ms(fn, n=50, warmup=5):
@@ -403,6 +414,91 @@ def _in_turns(parent, this, flush, bound_ms, label):
               f"({100 * bound_ms / w:.1f}% of the bound), cold "
               f"{c:.4f} ms ({100 * bound_ms / c:.1f}%)")
     return turns
+
+
+PVB_N = 1280    # the corridor's matches (EuRoC's 1200 features, rounded up)
+
+
+def _pvb_cases():
+    """tests/test_torch_pvb_kernel.py (numpy and the port only), loaded from
+    its file for its scenario and its comparison with the plain version."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_pvb_kernel.py")
+    threads = torch.get_num_threads()
+    spec = importlib.util.spec_from_file_location("pvb_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.set_num_threads(threads)      # the test file pins one thread
+    return mod
+
+
+def phase_pvb_kernel():
+    """pose_vel_bias_optimize's kernel at the corridor's shape (1,280
+    matches, 4 rounds x 6 steps): against the plain version through the
+    wrapper, then its own time through its C entry point (arguments built
+    once, so a run of launches keeps the card busy) with the L2 cache warm
+    and cold, beside the wrapper's call and the plain version's (each
+    between CUDA events)."""
+    from ms_slam_tpu_torch.ops import imu, inertial_opt
+    cases = _pvb_cases()
+    args, kw, _ = cases.scenario(torch.device("cuda"), N=PVB_N)
+    out = inertial_opt.pose_vel_bias_optimize(*args, **kw)
+    ref = inertial_opt.pose_vel_bias_optimize_plain(*args, **kw)
+    torch.cuda.synchronize()
+    cases._assert_close(out, ref)
+    err = {"rot_rad": cases._rot_err(out.R_wb, ref.R_wb),
+           **{k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+              for k in ("p_wb", "v", "bg", "ba")},
+           "inliers_differ": int((out.inlier != ref.inlier).sum())}
+    LT = imu.sqrt_information(args[10]).transpose(-1, -2).contiguous()
+    c_args, c_out = inertial_opt._launch_args(
+        *args[:11], LT, *args[11:], kw["walk_info"], 4, 6, kw["g"])
+    fn = inertial_opt.load_kernel().msslam_pose_vel_bias
+
+    def launch():
+        rc = fn(*c_args)
+        _check(rc == 0, f"pose_vel_bias launch failed: CUDA error {rc}")
+    launch.tensors = (args, kw, LT, c_out)      # keep the pointers alive
+    launch()
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(c_out, out)),
+           "pose_vel_bias: two launches on the same inputs differ")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    ms = _run_ms(launch)
+    ms_cold = _cold_ms(launch, flush)
+    wrapper_ms = _cuda_ms(
+        lambda: inertial_opt.pose_vel_bias_optimize(*args, **kw), n=50)
+    plain_ms = _run_ms(
+        lambda: inertial_opt.pose_vel_bias_optimize_plain(*args, **kw),
+        n=5, warmup=2, reps=3)
+    # the inputs read once: 28 bytes a match's floats and 1 its mask, the
+    # state, the preintegration and L^T; the outputs written once
+    n_bytes = 4 * sum(t.numel() for t in (*args[1:2], *args[3:10],
+                                          *[getattr(args[10], k) for k, _
+                                            in inertial_opt._PREINT_SHAPES],
+                                          LT, *args[11:18], kw["walk_info"],
+                                          kw["g"])) \
+        + 2 * PVB_N + 4 * 22
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"# pose_vel_bias, {PVB_N} matches, 4 x 6 steps ({_card()}): "
+          f"against the plain version rotation {err['rot_rad']:.2e} rad, p "
+          f"{err['p_wb']:.2e}, v {err['v']:.2e}, bg {err['bg']:.2e}, ba "
+          f"{err['ba']:.2e}, inlier slots differing {err['inliers_differ']}"
+          f"; inliers {int(out.n_inliers)} / {int(ref.n_inliers)}")
+    print(f"#   kernel alone, 200 launches between two events (L2 warm), "
+          f"median of 5 runs: {ms:.4f} ms; L2 cold, median of 50 event "
+          f"pairs: {ms_cold:.4f} ms; bytes {n_bytes} ({bound_ms * 1e3:.3f} "
+          f"us at 3.35 TB/s: bound by its 24 dependent steps, not bytes)")
+    print(f"#   one event pair around the wrapper's call (sqrt_information, "
+          f"checks, launch), median of 50: {wrapper_ms:.4f} ms; plain "
+          f"version, 5 calls between two events: {plain_ms:.4f} ms a call")
+    return {"max_abs_err": max(v for k, v in err.items()
+                               if k not in ("inliers_differ",)),
+            "err": err, "ms": ms, "ms_cold": ms_cold,
+            "ms_wrapper_call": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "latency (24 dependent steps)",
+            "bytes": n_bytes}
 
 
 def _library_ms(canvas, bi, ys, xs, ref, name):
@@ -1518,6 +1614,7 @@ def phase_inertial():
 
     torch.cuda.reset_peak_memory_stats()
     orb.patch_gather_launches = 0
+    inertial_opt.pvb_kernel_launches = 0
     frame_s, states, stages, peaks = [], [], [], []
     blank_from = None
     imu_expected = 0
@@ -1544,6 +1641,7 @@ def phase_inertial():
     slam._flush_pipeline()
     torch.cuda.synchronize()
     launches = orb.patch_gather_launches
+    pvb_launches = inertial_opt.pvb_kernel_launches
     imu_ops.integrate = integrate
     system_mod.to.track_full_imu = track_full_imu
     inertial_opt.pose_vel_bias_optimize = pvb
@@ -1591,30 +1689,24 @@ def phase_inertial():
               f"{np.percentile(v, 50) * 1e3:.2f} ms max {v.max() * 1e3:.2f} "
               f"ms (host clock between device syncs; {card}){extra}")
 
-    # what the cheap re-orthonormalization (lie.orthonormalize, 4 launches)
-    # saves over the quaternion round trip (lie.normalize_rotation, ~150) in
-    # the joint refinement: the last frame's call again, in turns
-    from ms_slam_tpu_torch.ops import lie
-    newton = lie.orthonormalize
+    # the kernel against the plain version on the last inertial frame's
+    # System inputs: its preintegration, match mask and mono rows
     a, k = last_pvb["args"]
-    turns = []
-    for name, fn in (("quaternion", lie.normalize_rotation),
-                     ("newton", newton), ("newton", newton),
-                     ("quaternion", lie.normalize_rotation)):
-        lie.orthonormalize = fn
-        ts = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = pvb(*a, **k)
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        turns.append(f"{name} {np.median(ts) * 1e3:.1f} ms "
-                     f"({int(res.n_inliers)} inliers)")
-    lie.orthonormalize = newton
-    print("# call pose_vel_bias_optimize on the last frame's inputs, "
-          "re-orthonormalizing by, in turns (median of 7): "
-          + ", ".join(turns) + f" ({card})")
+    k = {kk: v for kk, v in k.items() if kk != "timing"}
+    out = pvb(*a, **k)
+    ref = inertial_opt.pose_vel_bias_optimize_plain(*a, **k)
+    torch.cuda.synchronize()
+    cases = _pvb_cases()
+    err = {n: float((getattr(out, n) - getattr(ref, n)).abs().max())
+           for n in ("p_wb", "v", "bg", "ba")}
+    print("# call pose_vel_bias_optimize on the last frame's inputs "
+          f"({a[14].shape[0]} matches, {int(a[18].sum())} in the mask, "
+          f"{int((a[16] < 0).sum())} mono), kernel against the plain "
+          f"version: rotation {cases._rot_err(out.R_wb, ref.R_wb):.2e} rad, "
+          + ", ".join(f"{n} {v:.2e}" for n, v in err.items())
+          + f", inlier slots differing {int((out.inlier != ref.inlier).sum())}"
+          f"; inliers {int(out.n_inliers)} / {int(ref.n_inliers)}")
+    cases._assert_close(out, ref)
 
     g = np.asarray(slam.gravity, np.float64)
     print(f"# inertial: gravity {g.round(4).tolist()} (norm "
@@ -1640,6 +1732,13 @@ def phase_inertial():
            f"{windows_before_stage2} windows solved before stage 2")
     _check(launches == IMU_FRAMES,
            f"patch_gather launched {launches} times for {IMU_FRAMES} frames")
+    n_pvb = len(stage["pose_vel_bias_optimize"])
+    print(f"# inertial: pose_vel_bias kernel launches {pvb_launches} for "
+          f"{n_pvb} calls of pose_vel_bias_optimize and {slam.imu_frames} "
+          "inertial steps")
+    _check(pvb_launches == n_pvb == slam.imu_frames,
+           f"pose_vel_bias launched {pvb_launches} times for {n_pvb} calls "
+           f"and {slam.imu_frames} inertial steps")
 
     def ate(rows):
         est = np.stack([Twc[:3, 3] for _, Twc in rows])
@@ -1693,7 +1792,7 @@ def phase_inertial():
     n_win = slam._sparsifier.stats["windows"]
     print(f"# inertial: sparsification windows by shutdown(): {n_win}")
     _check(n_win >= 1, "no sparsification window by shutdown()")
-    return launches
+    return launches, pvb_launches
 
 
 # configs/TUM-VI-Fisheye.yaml: Camera1 and Camera2 (fx, fy, cx, cy, k1-k4),
@@ -2020,7 +2119,9 @@ def phase_mono_inertial():
     initialized; gravity within 0.6 of 9.81 m/s^2 with g_y / |g| > 0.9; the
     Horn scale between the trajectory and the metric ground truth within
     0.2 of 1 over the whole run and over its second half; the scale-free
-    ATE under 12% of the path; and one kernel launch a frame."""
+    ATE under 12% of the path; one patch-gather launch a frame, and one
+    pose_vel_bias launch an inertial step."""
+    from ms_slam_tpu_torch.ops import inertial_opt
     from ms_slam_tpu_torch.pipeline import system as system_mod
     from ms_slam_tpu_torch.pipeline.system import System
     from ms_slam_tpu_torch.utils import synth
@@ -2051,6 +2152,7 @@ def phase_mono_inertial():
             s.track_monocular_imu(fr[0], 0.1 * i, imu[i - 1])
         if s.imu_initialized and not init_at:
             init_at.append(i)
+    inertial_opt.pvb_kernel_launches = 0
     with _time_stages(stage, [
             (system_mod, "process_mono", "frontend"),
             (system_mod.to, "track_full", "track"),
@@ -2059,6 +2161,7 @@ def phase_mono_inertial():
         launches = _drive(slam, frames, step,
                           ("frontend", "track", "track_full_imu",
                            "keyframe_step"), stage, "mono-inertial")
+    pvb_launches = inertial_opt.pvb_kernel_launches
     g = np.asarray(slam.gravity if slam.gravity is not None
                    else np.zeros(3), np.float64)
     rows = slam.poses_wc()
@@ -2084,7 +2187,12 @@ def phase_mono_inertial():
     _check(ate < 0.12 * path, "scale-free ATE above 12%")
     _check(launches == MONO_IMU_FRAMES, f"patch_gather launched {launches} "
            f"times for {MONO_IMU_FRAMES} frames")
-    return launches
+    print(f"# mono-inertial: pose_vel_bias kernel launches {pvb_launches} "
+          f"for {slam.imu_frames} inertial steps")
+    _check(pvb_launches == slam.imu_frames > 0,
+           f"pose_vel_bias launched {pvb_launches} times for "
+           f"{slam.imu_frames} inertial steps")
+    return launches, pvb_launches
 
 
 CLI_FRAMES = 40         # the verify skill's 40 frames at 10 Hz
@@ -2147,7 +2255,7 @@ def phase_cli():
 
     from ms_slam_tpu_torch.examples import (evaluate_ate, gen_fake_euroc,
                                             stereo_inertial_euroc)
-    from ms_slam_tpu_torch.ops import orb
+    from ms_slam_tpu_torch.ops import inertial_opt, orb
     from ms_slam_tpu_torch.pipeline.system import System
     from ms_slam_tpu_torch.utils import checkpoint, native, viewer
     from ms_slam_tpu_torch.utils.config import Settings
@@ -2221,6 +2329,7 @@ def phase_cli():
     try:
         torch.cuda.reset_peak_memory_stats()
         orb.patch_gather_launches = 0
+        inertial_opt.pvb_kernel_launches = 0
         t0 = time.perf_counter()
         if have["cv2"]:
             slam = stereo_inertial_euroc.main(
@@ -2249,6 +2358,7 @@ def phase_cli():
         stereo_inertial_euroc.run = driver_run
         native.PrefetchPipeline = real_pipe
     launches = orb.patch_gather_launches
+    pvb_launches = inertial_opt.pvb_kernel_launches
     peak = torch.cuda.max_memory_allocated() / 2**20
     fs = np.asarray(seen["times"])
     route = ("the native prefetch pipeline" if seen["pipes"]
@@ -2267,6 +2377,11 @@ def phase_cli():
     _check(slam.imu_initialized, "imu initialized: False")
     _check(launches == n, f"patch_gather launched {launches} times for {n} "
            "frames")
+    print(f"# cli: pose_vel_bias kernel launches {pvb_launches} for "
+          f"{slam.imu_frames} inertial steps")
+    _check(pvb_launches == slam.imu_frames > 0,
+           f"pose_vel_bias launched {pvb_launches} times for "
+           f"{slam.imu_frames} inertial steps")
     ate = evaluate_ate.main([os.path.join(d, "gt.txt"), traj,
                              "--max-dt", "0.05"])
     print(f"# cli: ATE {ate:.4f} m through examples.evaluate_ate (bar 0.1 m)")
@@ -2361,7 +2476,7 @@ def phase_cli():
     _check(launches2 == 1 + CLI_AFTER, f"patch_gather launched {launches2} "
            f"times for {1 + CLI_AFTER} frames")
     work.cleanup()
-    return launches + launches2
+    return launches + launches2, pvb_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2660,7 +2775,7 @@ def phase_inertial_loop(circuit=None):
     when another process rendered them."""
     import dataclasses
 
-    from ms_slam_tpu_torch.ops import orb, pose_graph
+    from ms_slam_tpu_torch.ops import inertial_opt, orb, pose_graph
     from ms_slam_tpu_torch.pipeline import loop_closing
     from ms_slam_tpu_torch.pipeline.system import System
     from ms_slam_tpu_torch.utils import evaluate, synth
@@ -2703,6 +2818,7 @@ def phase_inertial_loop(circuit=None):
     _timed(slam, "_full_inertial_ba", "_full_inertial_ba", stage)
     torch.cuda.reset_peak_memory_stats()
     orb.patch_gather_launches = 0
+    inertial_opt.pvb_kernel_launches = 0
     frame_s, stages = [], []
     for i in range(LOOP_FRAMES):
         t0 = time.perf_counter()
@@ -2718,6 +2834,7 @@ def phase_inertial_loop(circuit=None):
     slam._flush_pipeline()
     torch.cuda.synchronize()
     launches = orb.patch_gather_launches
+    pvb_launches = inertial_opt.pvb_kernel_launches
     for (m, n), fn in zip(wrapped, originals):
         setattr(m, n, fn)
 
@@ -2763,8 +2880,13 @@ def phase_inertial_loop(circuit=None):
     _check(np.isfinite(est).all() and ate < 0.02 * path, "ATE above 2%")
     _check(launches == LOOP_FRAMES,
            f"patch_gather launched {launches} times for {LOOP_FRAMES} frames")
+    print(f"# inertial loop: pose_vel_bias kernel launches {pvb_launches} "
+          f"for {slam.imu_frames} inertial steps")
+    _check(pvb_launches == slam.imu_frames > 0,
+           f"pose_vel_bias launched {pvb_launches} times for "
+           f"{slam.imu_frames} inertial steps")
     print(f"# phase 16 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, pvb_launches
 
 
 def _drive_corridor(frames, cfg, label, card):
@@ -3377,7 +3499,9 @@ def _run(args):
         phase_sync_census(args.sync_census)
         return 0
     kern = phase_kernel(args.parent)
-    by_phase, bf16_by_phase = {}, {}
+    pvb = phase_pvb_kernel()
+    # pose_vel_bias launches, each phase's count set to 0 before its run
+    by_phase, bf16_by_phase, pvb_by_phase = {}, {}, {}
     only = [k for k in ("kernel_only", "loop_only", "imu_only",
                         "sensors_only", "cli_only", "atlas_only",
                         "imu_loop_only", "memory_only", "pipeline_only",
@@ -3412,17 +3536,19 @@ def _run(args):
             memory17 = ex.submit(phase_memory_then_pipeline, ab_on,
                                  _corridor_frames(), p4)
         if not part or only == ["imu_only"]:
-            by_phase["inertial"] = phase_inertial()
+            by_phase["inertial"], pvb_by_phase["inertial"] = \
+                phase_inertial()
         if not part or only == ["sensors_only"]:
             by_phase["mono"] = phase_mono()
             by_phase["rgbd"] = phase_rgbd()
             by_phase["fisheye"] = phase_fisheye()
-            by_phase["mono_inertial"] = phase_mono_inertial()
+            by_phase["mono_inertial"], pvb_by_phase["mono_inertial"] = \
+                phase_mono_inertial()
         if not part or only == ["cli_only"]:
-            by_phase["cli"] = phase_cli()
+            by_phase["cli"], pvb_by_phase["cli"] = phase_cli()
         if ex is not None:
             loop16, by_phase["atlas"] = circuit15.result()
-            by_phase["inertial_loop"] = loop16
+            by_phase["inertial_loop"], pvb_by_phase["inertial_loop"] = loop16
             by_phase["memory"], pipe, tpu = memory17.result()
             by_phase["pipeline"] = pipe["depth4"]["launches"]
             by_phase["pipeline_stack"] = pipe["stack_launches"]
@@ -3431,7 +3557,8 @@ def _run(args):
     if only == ["atlas_only"]:
         by_phase["atlas"] = phase_atlas()
     elif only == ["imu_loop_only"]:
-        by_phase["inertial_loop"] = phase_inertial_loop()
+        by_phase["inertial_loop"], pvb_by_phase["inertial_loop"] = \
+            phase_inertial_loop()
     elif only == ["memory_only"]:
         by_phase["memory"] = phase_memory()
     elif only == ["pipeline_only"]:
@@ -3463,7 +3590,12 @@ def _run(args):
         **{k: bf16[0][k] for k in ("in_turns",) if k in bf16[0]},
         "share_of_bound": bf16[0]["bound_ms"] / bf16[0]["ms"],
         "share_of_bound_cold": bf16[0]["bound_ms"] / bf16[0]["ms_cold"],
-        "other_shapes": bf16[1:]}]}))
+        "other_shapes": bf16[1:]}, {
+        "name": "pose_vel_bias", "route": "cuda",
+        "source": "ms_slam_tpu_torch/csrc/pose_vel_bias.cu",
+        "replaces": None,
+        "launches": sum(pvb_by_phase.values()) if pvb_by_phase else None,
+        "launches_by_phase": pvb_by_phase, **pvb}]}))
     if part:
         return 0
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ Port of `ms_slam_tpu/ops/inertial_opt.py`:
 - `pose_vel_bias_optimize`: the tracking-side motion-only optimization of
   [T_wb, v, bg, ba] with visual reprojection, the preintegration factor
   against the fixed previous state and a bias random walk (ref
-  Optimizer::PoseInertialOptimizationLastFrame);
+  Optimizer::PoseInertialOptimizationLastFrame). On the card it is one
+  launch of the hand-written kernel `csrc/pose_vel_bias.cu`; on the CPU
+  its plain version `pose_vel_bias_optimize_plain`;
 - `inertial_window_refine`: the inertial half of LocalInertialBA, window
   poses, velocities and a shared bias against fixed landmarks;
 - `inertial_init`: the IMU initialization MAP estimate of gravity direction,
@@ -35,12 +37,15 @@ which do not check `info` on the host: no call here synchronizes.
 """
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import cameras, imu, lie, robust
+from ..utils.trace import span
+from . import _native, cameras, imu, lie, robust
 from .lie import _mv
 
 G0 = imu.GRAVITY
@@ -113,7 +118,7 @@ class PVBResult(NamedTuple):
     n_inliers: torch.Tensor
 
 
-def pose_vel_bias_optimize(
+def pose_vel_bias_optimize_plain(
         model: int, params, bf, R_bc, t_bc,
         R1, p1, v1, bg1, ba1, preint: imu.PreintState,
         R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info,
@@ -177,6 +182,125 @@ def pose_vel_bias_optimize(
     R, p, v, bg, ba = unpack(x)
     return PVBResult(R_wb=R, p_wb=p, v=v, bg=bg, ba=ba, inlier=inlier,
                      n_inliers=inlier.sum().to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# pose_vel_bias_optimize: the hand-written CUDA kernel and its dispatch
+# ---------------------------------------------------------------------------
+
+# kernel launches made through pose_vel_bias_optimize, and the calls that
+# took the plain version on a CPU tensor, counted under a lock as
+# `orb.py`'s gather counters are
+pvb_kernel_launches = 0
+pvb_plain_calls = 0
+_count_lock = threading.Lock()
+
+
+def _count(name: str):
+    with _count_lock:
+        globals()[name] += 1
+
+
+_PREINT_SHAPES = (("dT", ()), ("dR", (3, 3)), ("dV", (3,)), ("dP", (3,)),
+                  ("JRg", (3, 3)), ("JVg", (3, 3)), ("JVa", (3, 3)),
+                  ("JPg", (3, 3)), ("JPa", (3, 3)), ("bias", (6,)))
+
+
+def _launch_args(model: int, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1,
+                 preint: imu.PreintState, LT, R2, p2, v2, X, uv, u_right,
+                 sigma2, mask, walk_info, n_rounds: int, n_iters: int, g
+                 ) -> tuple[tuple, PVBResult]:
+    """The arguments of `msslam_pose_vel_bias` and the result tensors it
+    fills (allocated here), after checking every input: contiguous
+    float32 tensors of the plain version's shapes on R2's device, a bool
+    mask. Raises ValueError otherwise. LT: the transposed
+    `imu.sqrt_information(preint)`. bf is read as a Python float. The
+    arguments hold the inputs' addresses only: the caller keeps the
+    tensors alive until the launch."""
+    dev = R2.device
+    if model not in (cameras.PINHOLE, cameras.KB8):
+        raise ValueError(f"no camera model {model}")
+    N = X.shape[0] if X.dim() == 2 else -1
+    if not 0 <= N < 2 ** 31:
+        raise ValueError(f"X must be (N,3), got {tuple(X.shape)}")
+    floats = [("params", params, (8,)), ("R_bc", R_bc, (3, 3)),
+              ("t_bc", t_bc, (3,)), ("R1", R1, (3, 3)), ("p1", p1, (3,)),
+              ("v1", v1, (3,)), ("bg1", bg1, (3,)), ("ba1", ba1, (3,)),
+              *[(f"preint.{k}", getattr(preint, k), shape)
+                for k, shape in _PREINT_SHAPES],
+              ("sqrt_information(preint)", LT, (9, 9)), ("R2", R2, (3, 3)),
+              ("p2", p2, (3,)), ("v2", v2, (3,)), ("X", X, (N, 3)),
+              ("uv", uv, (N, 2)), ("u_right", u_right, (N,)),
+              ("sigma2", sigma2, (N,)), ("walk_info", walk_info, (6,)),
+              ("g", g, (3,))]
+    for name, t, shape in floats + [("mask", mask, (N,))]:
+        dtype = torch.bool if name == "mask" else torch.float32
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(
+                f"{name} must be a contiguous {shape} {dtype} tensor on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    state = torch.empty(21, dtype=torch.float32, device=dev)
+    out = PVBResult(R_wb=state[:9].view(3, 3), p_wb=state[9:12],
+                    v=state[12:15], bg=state[15:18], ba=state[18:21],
+                    inlier=torch.empty(N, dtype=torch.bool, device=dev),
+                    n_inliers=torch.empty((), dtype=torch.int32,
+                                          device=dev))
+    stream = (torch.cuda.current_stream(dev).cuda_stream
+              if dev.type == "cuda" else None)
+    args = (model, float(bf), N, int(n_rounds), int(n_iters),
+            *[t.data_ptr() for _, t, _ in floats[:-2]], mask.data_ptr(),
+            walk_info.data_ptr(), g.data_ptr(), state.data_ptr(),
+            out.inlier.data_ptr(), out.n_inliers.data_ptr(), stream)
+    return args, out
+
+
+def load_kernel() -> ctypes.CDLL:
+    """The kernel's library, built (nvcc, at first use in a checkout) and
+    loaded. A System that will track with an IMU on the card calls it while
+    it is set up, so that no tracked frame waits for the compiler."""
+    lib = _native.load("pose_vel_bias")
+    fn = lib.msslam_pose_vel_bias
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p] * 33
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def pose_vel_bias_optimize(
+        model: int, params, bf, R_bc, t_bc,
+        R1, p1, v1, bg1, ba1, preint: imu.PreintState,
+        R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info,
+        n_rounds: int = 4, n_iters: int = 6, g=None, *,
+        timing=None) -> PVBResult:
+    """`pose_vel_bias_optimize_plain` by the tensors' device: a CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel
+    (csrc/pose_vel_bias.cu) on the current stream, or raises ValueError
+    for inputs it does not take (`_launch_args`). Given a `Timing`, the
+    launch is the span `pvb_opt.kernel`."""
+    if R2.device.type == "cpu":
+        _count("pvb_plain_calls")
+        return pose_vel_bias_optimize_plain(
+            model, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1, preint,
+            R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info, n_rounds,
+            n_iters, g)
+    if R2.device.type != "cuda":
+        raise ValueError(f"no pose_vel_bias_optimize for device {R2.device}")
+    if g is None:
+        g = imu._default_g(R2)
+    LT = imu.sqrt_information(preint).transpose(-1, -2).contiguous()
+    args, out = _launch_args(model, params, bf, R_bc, t_bc, R1, p1, v1, bg1,
+                             ba1, preint, LT, R2, p2, v2, X, uv, u_right,
+                             sigma2, mask, walk_info, n_rounds, n_iters, g)
+    fn = load_kernel().msslam_pose_vel_bias
+    with span(timing, "pvb_opt.kernel"):
+        rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(
+            f"pose_vel_bias kernel launch failed: CUDA error {rc}")
+    _count("pvb_kernel_launches")
+    return out
 
 
 class WindowRefineResult(NamedTuple):

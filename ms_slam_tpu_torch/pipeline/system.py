@@ -309,6 +309,8 @@ class System:
             torch.as_tensor(self.Tbc[:3, 3], dtype=torch.float32,
                             device=self.device))
         self.imu_frames = 0      # frames tracked through track_full_imu
+        if cfg.use_imu and self.device.type == "cuda":
+            inertial_opt.load_kernel()   # nvcc, if it runs, runs in set-up
         # Atlas labels (host): the map id of each keyframe slot; a fresh map
         # starts after irrecoverable loss (ref Tracking::CreateMapInAtlas)
         self.active_map = 0

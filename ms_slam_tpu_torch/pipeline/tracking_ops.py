@@ -18,8 +18,9 @@ Given a `Timing` (`timing=`), the step records its stages as spans
 (`utils/trace.py`): `track.motion` (with `sync.track_wide` and
 `sync.track_fallback`), `track.local_select`, `track.local`, `track.stats`,
 and in the inertial step `imu.predict` and `pvb_opt`; inside them `search`
-around each `search_by_projection` and `pose_opt` around each
-`pose_optimize`.
+around each `search_by_projection`, `pose_opt` around each
+`pose_optimize` and, on the card, `pvb_opt.kernel` around the launch of
+`pose_vel_bias_optimize`'s kernel.
 """
 from __future__ import annotations
 
@@ -296,7 +297,8 @@ def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
             R_wb1, p_wb1, v_last, bias[:3], bias[3:], preint, R_wb4, p_wb4,
             v2, X, frame.feats.xy, frame.u_right, frame.sigma2, has,
             walk_info=torch.full((6,), 1e4, dtype=R_wb4.dtype,
-                                 device=R_wb4.device), g=gravity)
+                                 device=R_wb4.device), g=gravity,
+            timing=timing)
         # the joint solution is taken when it keeps at least as many inliers
         use = (pvb.n_inliers >= out4.n_inliers) & (dT > 0)
         R_c, t_c = cam_of_body(pvb.R_wb, pvb.p_wb)
