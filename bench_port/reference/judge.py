@@ -7,10 +7,12 @@ under judgement.
 
 - `frontend_mismatch_pct`: sampled keyframes' stored features (keypoint,
   level, angle, descriptor, stereo depth) against the plain frontend on the
-  same pair, slot by slot;
+  same pair, slot by slot: `frontend.py`'s rectified matcher for a pinhole
+  rig, `fisheye.py`'s two-view triangulation for a KB8 one;
 - `ate_pct`, `lost_frames`: the tracked poses against the ground truth;
 - `map_err_p90_pct`: live map points against the surface point their first
-  keyframe's keypoint sees in the scene;
+  keyframe's keypoint sees in the scene, along the ray of the rig's own
+  lens (for a KB8 rig the renderer's own inverse of the lens);
 - `select_diff_pct`, `select_gap_pct`: each sparsification window solved in
   the window, worked out again by the plain selection from the map the
   port's selector was handed: the share of the window's points kept by one
@@ -25,8 +27,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..scenes.evaluate import ate_rmse
+from ..scenes.fisheye import kb8_bearings
 from ..scenes.motion import body_velocity
-from . import frontend, select
+from . import fisheye, frontend, select
 
 NUMBERS = ("frontend_mismatch_pct", "ate_pct", "lost_frames",
            "map_err_p90_pct", "select_diff_pct", "select_gap_pct",
@@ -78,6 +81,19 @@ def alignment(first_gt: np.ndarray, first_est: np.ndarray) -> np.ndarray:
     return first_gt @ np.linalg.inv(first_est)
 
 
+def keypoint_rays(camera: dict, xy: np.ndarray) -> np.ndarray:
+    """(n, 3) camera rays of the left image's keypoints (n, 2) by the rig's
+    lens: z = 1 rays of a pinhole camera, unit bearings of a KB8 one."""
+    if camera["model"] == "kb8":
+        import torch
+        xy_t = torch.from_numpy(xy)
+        return kb8_bearings(camera["params"], xy_t[:, 0],
+                            xy_t[:, 1]).numpy()
+    return np.stack([(xy[:, 0] - camera["cx"]) / camera["fx"],
+                     (xy[:, 1] - camera["cy"]) / camera["fy"],
+                     np.ones(len(xy))], 1)
+
+
 def map_error(run: dict, inp, A: np.ndarray) -> np.ndarray:
     """Per live map point with its first keyframe's observation: the
     distance to the scene point that keypoint sees from the ground-truth
@@ -95,10 +111,7 @@ def map_error(run: dict, inp, A: np.ndarray) -> np.ndarray:
         n, p = n[mine], p[mine]
         if not len(p):
             continue
-        xy = ms["kp_xy"][k][n].astype(np.float64)
-        rays.append(np.stack([(xy[:, 0] - cam["cx"]) / cam["fx"],
-                              (xy[:, 1] - cam["cy"]) / cam["fy"],
-                              np.ones(len(xy))], 1))
+        rays.append(keypoint_rays(cam, ms["kp_xy"][k][n].astype(np.float64)))
         f = int(ms["kf_frame_id"][k])
         poses.append(np.repeat(inp.poses[f][None], len(p), 0))
         pts.append(ms["mp_pos"][p].astype(np.float64))
@@ -140,10 +153,15 @@ def judge(run: dict, inp, orb: frontend.Orb, device) -> dict:
     out = {}
     # frontend: the sampled keyframes against the plain frontend
     bad = used = 0
+    cam = inp.camera
     for kf in run["frontend_kfs"]:
         left, right = inp.frames[kf["frame"]]
-        ref = frontend.stereo_frontend(left, right, orb, inp.camera["bf"],
-                                       inp.camera["fx"], device)
+        if cam["model"] == "kb8":
+            ref = fisheye.stereo_fisheye_frontend(left, right, orb, cam,
+                                                  device)
+        else:
+            ref = frontend.stereo_frontend(left, right, orb, cam["bf"],
+                                           cam["fx"], device)
         b, u = frontend_mismatch(kf, ref)
         bad += b
         used += u

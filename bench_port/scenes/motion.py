@@ -2,9 +2,9 @@
 
 `poses` is the one general trajectory generator: a forward run along +z
 at a fixed speed a frame, with optional lateral (x) and vertical (y)
-sinusoids and a sinusoidal yaw, all functions of time (frame / fps), so
-that the excitation does not stretch with the frame count. With every
-amplitude 0 it is `ms_slam_tpu_torch/utils/synth.py`'s
+sinusoids and a sinusoidal yaw, pitch and roll, all functions of time
+(frame / fps), so that the excitation does not stretch with the frame
+count. With every amplitude 0 it is `ms_slam_tpu_torch/utils/synth.py`'s
 `make_trajectory(n, "forward")` at that speed.
 
 `make_imu` is a frozen copy of the same module's `make_imu`, evaluated for
@@ -19,20 +19,30 @@ from __future__ import annotations
 import numpy as np
 
 
-def _yaw(a: np.ndarray) -> np.ndarray:
-    """(n, 3, 3) rotations about +y (`Rotation.from_euler("y", a)`)."""
+def _rotation(axis: int, a: np.ndarray) -> np.ndarray:
+    """(n, 3, 3) rotations by the angles a about +x, +y or +z (axis 0, 1,
+    2), as `Rotation.from_euler("xyz"[axis], a)`."""
+    i, j = (axis + 1) % 3, (axis + 2) % 3
     c, s = np.cos(a), np.sin(a)
     R = np.zeros((len(a), 3, 3))
-    R[:, 0, 0] = c
-    R[:, 0, 2] = s
-    R[:, 1, 1] = 1.0
-    R[:, 2, 0] = -s
-    R[:, 2, 2] = c
+    R[:, axis, axis] = 1.0
+    R[:, i, i] = c
+    R[:, i, j] = -s
+    R[:, j, i] = s
+    R[:, j, j] = c
     return R
 
 
+def _yaw(a: np.ndarray) -> np.ndarray:
+    """(n, 3, 3) rotations about +y."""
+    return _rotation(1, a)
+
+
 def poses(n: int, motion: dict, fps: float) -> np.ndarray:
-    """(n, 4, 4) float64 camera-to-world poses T_wc."""
+    """(n, 4, 4) float64 camera-to-world poses T_wc. The rotation is
+    yaw (about y), then pitch (about x), then roll (about z), in the
+    camera's frame; a mix without a pitch or a roll wave gets the yaw
+    alone, with no product taken, so its poses keep their bits."""
     i = np.arange(n, dtype=np.float64)
     t = i / fps
 
@@ -48,7 +58,11 @@ def poses(n: int, motion: dict, fps: float) -> np.ndarray:
     T[:, 0, 3] = wave("lateral_m")
     T[:, 1, 3] = wave("vertical_m")
     T[:, 2, 3] = float(motion["speed_m_per_frame"]) * i
-    T[:, :3, :3] = _yaw(wave("yaw_rad"))
+    R = _yaw(wave("yaw_rad"))
+    for key, axis in (("pitch_rad", 0), ("roll_rad", 2)):
+        if key in motion:
+            R = R @ _rotation(axis, wave(key))
+    T[:, :3, :3] = R
     return T
 
 

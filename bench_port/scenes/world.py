@@ -8,6 +8,12 @@ casting them in numpy on the host. The ray-plane arithmetic and the
 bilinear texture sample are the source's, in float64; the texture's
 rectangles are drawn by a `torch.Generator` instead of numpy's, so a seed
 gives another texture than the source's, of the same statistics.
+
+One addition of the harness's own: with `wrap_shift` set, the texture's
+rows move by that many at each wrap of its columns along the corridor (z),
+so that a route longer than one texture period does not meet the same
+walls again (`inputs.distinct_length` says how far it may go). Without it
+the texture wraps as the source's does.
 """
 from __future__ import annotations
 
@@ -44,8 +50,9 @@ class CorridorWorld:
 
     def __init__(self, textures: torch.Tensor, half_w: float = 3.0,
                  y_floor: float = 1.6, y_ceil: float = -2.2,
-                 tex_scale: float = 0.05):
+                 tex_scale: float = 0.05, wrap_shift: int = 0):
         self.tex = textures
+        self.wrap_shift = int(wrap_shift)
         self.half_w = float(half_w)
         self.y_floor = float(y_floor)
         self.y_ceil = float(y_ceil)
@@ -54,7 +61,7 @@ class CorridorWorld:
     @classmethod
     def from_seed(cls, seed: int, device, half_w=3.0, y_floor=1.6,
                   y_ceil=-2.2, tex_scale=0.05, tex_size=4096, rect_max=None,
-                  n_rects=None):
+                  n_rects=None, wrap_shift=0):
         """Textures from the seed; by default the source's rectangle count
         400 * (tex_size // 768) ** 2 and side tex_size // 6."""
         gen = torch.Generator(device=device)
@@ -62,7 +69,7 @@ class CorridorWorld:
         n_rects = n_rects or 400 * (tex_size // 768) ** 2
         tex = torch.stack([mondrian_texture(gen, tex_size, n_rects, device,
                                             rect_max) for _ in range(4)])
-        return cls(tex, half_w, y_floor, y_ceil, tex_scale)
+        return cls(tex, half_w, y_floor, y_ceil, tex_scale, wrap_shift)
 
     def planes(self):
         """(axis, value, texture index, (texture axes)), the source's order."""
@@ -72,7 +79,13 @@ class CorridorWorld:
     def _sample(self, k: int, a: torch.Tensor, b: torch.Tensor):
         tex = self.tex[k]
         size = tex.shape[0]
-        ia = torch.remainder(a / self.tex_scale, size)
+        if self.wrap_shift:
+            # b runs along the corridor on every plane
+            wraps = torch.floor(b / self.tex_scale / size)
+            ia = torch.remainder(a / self.tex_scale + wraps * self.wrap_shift,
+                                 size)
+        else:
+            ia = torch.remainder(a / self.tex_scale, size)
         ib = torch.remainder(b / self.tex_scale, size)
         i0 = torch.remainder(torch.floor(ia).long(), size)
         j0 = torch.remainder(torch.floor(ib).long(), size)

@@ -96,7 +96,6 @@ def tiny(tmp_path_factory):
     cfg = registry.config("kitti00-02-stereo")
     cfg["yaml_path"] = str(path)
     cfg["system_config"] = {"max_kf": 64, "max_mp": 8192, "local_cap": 2048}
-    cfg["scene"] = dict(cfg["scene"], tex_size=768, n_rects=400)
     cfg["settings"]["sparsify_queue_min"]["value"] = 1
     cell = registry.cell("kitti00-02-stereo.drive")
     traffic = registry.traffic("drive")
@@ -113,7 +112,6 @@ def tiny_imu(tmp_path_factory):
     cfg = registry.config("euroc-stereo-inertial")
     cfg["yaml_path"] = str(path)
     cfg["system_config"] = {"max_kf": 64, "max_mp": 8192, "local_cap": 2048}
-    cfg["scene"] = dict(cfg["scene"], tex_size=768, n_rects=400)
     return (registry.cell("euroc-stereo-inertial.corridor"), cfg,
             registry.traffic("corridor"))
 
