@@ -29,7 +29,11 @@ Phases (any failure exits non-zero; there is no CPU path):
      version within tests/test_torch_pvb_kernel.py's tolerances, and its
      time alone (200 launches of its C entry point between two events, L2
      warm; one event pair a launch after a 256 MiB write, L2 cold) beside
-     the plain version's and the wrapper's, each between events;
+     the plain version's and the wrapper's, each between events; then the
+     same kernel with an unrectified KB8 pair's right rows (TUM-VI's rig,
+     the walk cell's 1,024 matches; tests/test_torch_rig_inertial.py's
+     scenario) against its plain version and the plain two-camera model
+     of bench_port/reference/rig.py, and its time the same way;
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -462,7 +466,8 @@ def phase_pvb_kernel():
     launch.tensors = (args, kw, LT, c_out)      # keep the pointers alive
     launch()
     torch.cuda.synchronize()
-    _check(all(torch.equal(a, b) for a, b in zip(c_out, out)),
+    _check(all(torch.equal(a, b) for a, b in zip(c_out, out)
+               if a is not None),
            "pose_vel_bias: two launches on the same inputs differ")
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     ms = _run_ms(launch)
@@ -499,6 +504,78 @@ def phase_pvb_kernel():
             "ms_wrapper_call": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "latency (24 dependent steps)",
             "bytes": n_bytes}
+
+
+PVB_RIG_N = 1024   # the walk's matches (TUM-VI's 1024 features)
+
+
+def phase_pvb_kernel_rig():
+    """pose_vel_bias_optimize's kernel with right rows (one launch of
+    `msslam_pose_vel_bias` with the rig's pointers) at the walk's 1,024
+    matches: against the
+    plain version (tests/test_torch_pvb_kernel.py's tolerances, the right
+    rows' flags within 2 slots) and the reference's chi2 gate at its
+    solution, then its own time through its C entry point, L2 warm and
+    cold, and the wrapper's call."""
+    from ms_slam_tpu_torch.ops import imu, inertial_opt
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    threads = torch.get_num_threads()
+    import test_torch_pvb_kernel
+    import test_torch_rig_inertial as cases
+    torch.set_num_threads(threads)      # the test files pin one thread
+    args, kw, _ = cases.rig_scenario(torch.device("cuda"), N=PVB_RIG_N)
+    before = inertial_opt.pvb_kernel_launches
+    out = inertial_opt.pose_vel_bias_optimize(*args, **kw)
+    torch.cuda.synchronize()
+    _check(inertial_opt.pvb_kernel_launches == before + 1,
+           "pose_vel_bias with right rows: not one launch")
+    ref = inertial_opt.pose_vel_bias_optimize_plain(*args, **kw)
+    cases._assert_close(out, ref)
+    gate = cases._gate(out, args, kw)
+    err = {"rot_rad": test_torch_pvb_kernel._rot_err(out.R_wb, ref.R_wb),
+           **{k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+              for k in ("p_wb", "v", "bg", "ba")},
+           "inliers_differ": int((out.inlier != ref.inlier).sum()),
+           "right_differ": int((out.inlier_r != ref.inlier_r).sum()),
+           "right_differ_reference": int((out.inlier_r.cpu() != gate).sum())}
+    _check(err["right_differ"] <= 2 and err["right_differ_reference"] <= 2,
+           f"pose_vel_bias right rows differ: {err}")
+    LT = imu.sqrt_information(args[10]).transpose(-1, -2).contiguous()
+    c_args, c_out = inertial_opt._launch_args(
+        *args[:11], LT, *args[11:], kw["walk_info"], 4, 6, kw["g"],
+        kw["rig"], kw["right"])
+    fn = inertial_opt.load_kernel().msslam_pose_vel_bias
+
+    def launch():
+        rc = fn(*c_args)
+        _check(rc == 0, f"pose_vel_bias launch failed: CUDA error {rc}")
+    launch.tensors = (args, kw, LT, c_out)      # keep the pointers alive
+    launch()
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(c_out, out)),
+           "pose_vel_bias with right rows: two launches on the same "
+           "inputs differ")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    ms = _run_ms(launch)
+    ms_cold = _cold_ms(launch, flush)
+    wrapper_ms = _cuda_ms(
+        lambda: inertial_opt.pose_vel_bias_optimize(*args, **kw), n=50)
+    print(f"# pose_vel_bias with right rows, {PVB_RIG_N} matches, 4 x 6 "
+          f"steps ({_card()}): against the plain version rotation "
+          f"{err['rot_rad']:.2e} rad, p {err['p_wb']:.2e}, v {err['v']:.2e}"
+          f", bg {err['bg']:.2e}, ba {err['ba']:.2e}, inlier slots "
+          f"differing {err['inliers_differ']}, right rows' flags differing "
+          f"{err['right_differ']} (from the reference's gate "
+          f"{err['right_differ_reference']}); inliers {int(out.n_inliers)}"
+          f" / {int(ref.n_inliers)}, right rows {int(out.n_right)} / "
+          f"{int(ref.n_right)}")
+    print(f"#   kernel alone, 200 launches between two events (L2 warm), "
+          f"median of 5 runs: {ms:.4f} ms; L2 cold, median of 50 event "
+          f"pairs: {ms_cold:.4f} ms; the wrapper's call, median of 50 event "
+          f"pairs: {wrapper_ms:.4f} ms")
+    return {"err": err, "ms": ms, "ms_cold": ms_cold,
+            "ms_wrapper_call": wrapper_ms, "n_right": int(out.n_right)}
 
 
 def _library_ms(canvas, bi, ys, xs, ref, name):
@@ -3500,6 +3577,7 @@ def _run(args):
         return 0
     kern = phase_kernel(args.parent)
     pvb = phase_pvb_kernel()
+    pvb["rig"] = phase_pvb_kernel_rig()
     # pose_vel_bias launches, each phase's count set to 0 before its run
     by_phase, bf16_by_phase, pvb_by_phase = {}, {}, {}
     only = [k for k in ("kernel_only", "loop_only", "imu_only",

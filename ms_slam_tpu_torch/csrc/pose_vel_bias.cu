@@ -45,13 +45,22 @@
 //    (imu.information: tiny-noise covariances are ~1e-8). Its sqrtf then
 //    gives NaN where LU gives the plain version's finite step.
 //
+// An unrectified stereo pair (non-null rig pointers) adds each match's right keypoint:
+// a 2-row residual through T_rl and the second lens, accumulated by the
+// same thread right after its left rows, with its own variance, the
+// monocular gate and Huber weight and its own working inlier flag. It is
+// the plain version's second copy of the table, in the same launch.
+//
 // The same work in the same precision: float32 throughout, every round and
 // step runs, and the formulas and their order are the plain version's.
 // Sums run in another order (per thread, then across the block), so the
 // results agree to float32 rounding, not bit for bit.
 //
-// Plain C interface (loaded with ctypes): launches on the given stream, does
-// not synchronise, allocates nothing, returns a cudaError_t as an int.
+// Plain C interface (loaded with ctypes): msslam_pose_vel_bias, whose last
+// five pointers are the rig's (the second lens, T_rl as 12 floats row-major
+// [R | t], the (N,3) right keypoints, the right rows' flags and their count)
+// or all null. It launches on the given stream, does not synchronise,
+// allocates nothing, returns a cudaError_t as an int.
 
 #include <cuda_runtime.h>
 
@@ -81,6 +90,11 @@ struct Args {
   float* state;                         // R (9), p, v, bg, ba: 21 floats
   uint8_t* inlier;                      // (N,): also the working mask
   int* n_inliers;
+  int rig;                              // 1: the right rows below
+  const float *params2, *T_rl;          // the second lens; [R_rl | t_rl]
+  const float* right;                   // (N,3) [u, v, sigma2], u < 0: none
+  uint8_t* inlier_r;                    // (N,): the right rows' flags
+  int* n_right;
 };
 
 // ---------------------------------------------------------------------------
@@ -393,9 +407,53 @@ __device__ __forceinline__ Rows visual_rows(const Args& a, const float* P,
   return o;
 }
 
+// Adds the weighted row [m, d x m] (row m of d(proj)/d(X), d = X - p) with
+// residual r to acc: the row of [J3 R_cw, -J3 R_cw hat(X - p)].
+__device__ __forceinline__ void add_row(float m0, float m1, float m2,
+                                        const V3& d, float w, float r,
+                                        float acc[kVis]) {
+  const float J[6] = {m0, m1, m2, d.a[1] * m2 - d.a[2] * m1,
+                      d.a[2] * m0 - d.a[0] * m2, d.a[0] * m1 - d.a[1] * m0};
+  int k = 0;
+#pragma unroll
+  for (int p = 0; p < 6; ++p) {
+    const float wj = w * J[p];
+#pragma unroll
+    for (int q = p; q < 6; ++q) acc[k++] += wj * J[q];
+    acc[21 + p] += wj * r;
+  }
+}
+
+// Match i's right row: the residual through T_rl and the second lens, its
+// chi2 and the right-camera point. P2 and T (R_rl | t_rl) from shared
+// memory.
+struct RightRow {
+  V3 Xr;
+  float r[2];
+  float chi2, w_info;
+};
+
+__device__ __forceinline__ RightRow right_row(const Args& a, const float* P2,
+                                              const float* T, const V3& Xc,
+                                              int i) {
+  RightRow o;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    o.Xr.a[k] = T[4 * k] * Xc.a[0] + T[4 * k + 1] * Xc.a[1]
+                + T[4 * k + 2] * Xc.a[2] + T[4 * k + 3];
+  float u, v;
+  project(a.model, P2, o.Xr.a[0], o.Xr.a[1], o.Xr.a[2], u, v);
+  o.r[0] = a.right[3 * i] - u;
+  o.r[1] = a.right[3 * i + 1] - v;
+  o.w_info = 1.f / fmaxf(a.right[3 * i + 2], 1e-12f);
+  o.chi2 = (o.r[0] * o.r[0] + o.r[1] * o.r[1]) * o.w_info;
+  return o;
+}
+
 // Adds match i's weighted rows to acc: the upper triangle of J^T W J (21,
-// row by row) and J^T W r (6).
+// row by row) and J^T W r (6); with a rig, the right row's after them.
 __device__ __forceinline__ void accumulate(const Args& a, const float* P,
+                                           const float* P2, const float* T,
                                            const Pose& s, int i,
                                            float acc[kVis]) {
   const Rows o = visual_rows(a, P, s, i);
@@ -404,30 +462,39 @@ __device__ __forceinline__ void accumulate(const Args& a, const float* P,
   const float w = (c2 <= o.hub ? 1.f : sqrtf(o.hub / c2)) * o.w_info
                   * (a.inlier[i] ? 1.f : 0.f)
                   * (o.Xc.a[2] > 1e-2f ? 1.f : 0.f);
-  if (w == 0.f) return;
-  float Jp[6];
-  project_jac(a.model, P, o.Xc.a[0], o.Xc.a[1], o.Xc.a[2], Jp);
-  const float z = fmaxf(o.Xc.a[2], 1e-6f);
-  // J3: the pixel rows and the right image's u row (mono: not used)
-  const M3 J3{{Jp[0], Jp[1], Jp[2], Jp[3], Jp[4], Jp[5], Jp[0], Jp[1],
-               Jp[2] + a.bf / (z * z)}};
-  const M3 M = mm(J3, s.Rcw);            // d(proj) / d(X): rows m_r
   const V3 d = sub(o.X, s.p);
+  if (w != 0.f) {
+    float Jp[6];
+    project_jac(a.model, P, o.Xc.a[0], o.Xc.a[1], o.Xc.a[2], Jp);
+    const float z = fmaxf(o.Xc.a[2], 1e-6f);
+    // J3: the pixel rows and the right image's u row (mono: not used)
+    const M3 J3{{Jp[0], Jp[1], Jp[2], Jp[3], Jp[4], Jp[5], Jp[0], Jp[1],
+                 Jp[2] + a.bf / (z * z)}};
+    const M3 M = mm(J3, s.Rcw);          // d(proj) / d(X): rows m_r
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    if (r == 2 && !o.stereo) break;
-    const float m0 = M.a[3 * r], m1 = M.a[3 * r + 1], m2 = M.a[3 * r + 2];
-    // row r of [J3 R_cw, -J3 R_cw hat(X - p)]: [m_r, d x m_r]
-    const float J[6] = {m0, m1, m2, d.a[1] * m2 - d.a[2] * m1,
-                        d.a[2] * m0 - d.a[0] * m2, d.a[0] * m1 - d.a[1] * m0};
-    int k = 0;
-#pragma unroll
-    for (int p = 0; p < 6; ++p) {
-      const float wj = w * J[p];
-#pragma unroll
-      for (int q = p; q < 6; ++q) acc[k++] += wj * J[q];
-      acc[21 + p] += wj * o.r[r];
+    for (int r = 0; r < 3; ++r) {
+      if (r == 2 && !o.stereo) break;
+      add_row(M.a[3 * r], M.a[3 * r + 1], M.a[3 * r + 2], d, w, o.r[r], acc);
     }
+  }
+  if (!a.rig || !a.inlier_r[i]) return;
+  const RightRow q = right_row(a, P2, T, o.Xc, i);
+  const float c2r = fmaxf(q.chi2, 1e-12f);
+  const float wr = (c2r <= kMonoChi2 ? 1.f : sqrtf(kMonoChi2 / c2r))
+                   * q.w_info * (q.Xr.a[2] > 1e-2f ? 1.f : 0.f);
+  if (wr == 0.f) return;
+  float Jq[6];
+  project_jac(a.model, P2, q.Xr.a[0], q.Xr.a[1], q.Xr.a[2], Jq);
+  // d(proj2) / d(X) = J2 R_rl R_cw, row by row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float e[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      e[c] = Jq[3 * r] * T[c] + Jq[3 * r + 1] * T[4 + c]
+             + Jq[3 * r + 2] * T[8 + c];
+    const V3 m = mv(tr(s.Rcw), V3{{e[0], e[1], e[2]}});
+    add_row(m.a[0], m.a[1], m.a[2], d, wr, q.r[r], acc);
   }
 }
 
@@ -443,7 +510,9 @@ struct Shared {
   float W[9][16];   // L^T A
   float H[15][16];  // normal equations | right-hand side (column 15)
   float Jl[9];
-  int count;
+  float P2[8];      // the second lens
+  float T_rl[12];   // [R_rl | t_rl], row-major
+  int count, count_r;
 };
 
 // Lane 0: the Forster residual and the Jacobian columns that move with x
@@ -613,10 +682,14 @@ pose_vel_bias_kernel(const Args a) {
   // the working inlier mask starts as the match mask; the constant blocks
   // of the factor's Jacobian (imu.InertialJac p2, v2, bg and ba rows 3-8)
   if (warp > 0)
-    for (int i = tid - 32; i < a.n; i += kPointThreads)
+    for (int i = tid - 32; i < a.n; i += kPointThreads) {
       a.inlier[i] = a.mask[i] ? 1 : 0;
+      if (a.rig) a.inlier_r[i] = a.mask[i] && a.right[3 * i] >= 0.f;
+    }
   if (tid < 15) sh.x[tid] = 0.f;
-  if (tid == 0) sh.count = 0;
+  if (a.rig && tid < 8) sh.P2[tid] = a.params2[tid];
+  if (a.rig && tid < 12) sh.T_rl[tid] = a.T_rl[tid];
+  if (tid == 0) sh.count = sh.count_r = 0;
   for (int e = tid; e < 81; e += kThreads) sh.LT[e / 9][e % 9] = a.LT[e];
   for (int e = tid; e < 9 * 16; e += kThreads) sh.A[e >> 4][e & 15] = 0.f;
   __syncthreads();
@@ -647,7 +720,7 @@ pose_vel_bias_kernel(const Args a) {
 #pragma unroll
         for (int k = 0; k < kVis; ++k) acc[k] = 0.f;
         for (int i = tid - 32; i < a.n; i += kPointThreads)
-          accumulate(a, P, s, i, acc);
+          accumulate(a, P, sh.P2, sh.T_rl, s, i, acc);
 #pragma unroll
         for (int k = 0; k < kVis; ++k) {
           float v = acc[k];
@@ -673,16 +746,27 @@ pose_vel_bias_kernel(const Args a) {
       for (int i = tid - 32; i < a.n; i += kPointThreads) {
         const Rows o = visual_rows(a, P, s, i);
         a.inlier[i] = a.mask[i] && o.chi2 <= o.hub && o.Xc.a[2] > 0.f;
+        if (a.rig) {
+          const RightRow q = right_row(a, sh.P2, sh.T_rl, o.Xc, i);
+          a.inlier_r[i] = a.mask[i] && a.right[3 * i] >= 0.f
+                          && q.chi2 <= kMonoChi2 && q.Xr.a[2] > 0.f;
+        }
       }
   }
 
-  int cnt = 0;
+  int cnt = 0, cnt_r = 0;
   if (warp > 0)
-    for (int i = tid - 32; i < a.n; i += kPointThreads) cnt += a.inlier[i];
+    for (int i = tid - 32; i < a.n; i += kPointThreads) {
+      cnt += a.inlier[i];
+      if (a.rig) cnt_r += a.inlier_r[i];
+    }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = 16; off > 0; off >>= 1) {
     cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+    cnt_r += __shfl_down_sync(0xffffffffu, cnt_r, off);
+  }
   if (lane == 0 && cnt) atomicAdd(&sh.count, cnt);
+  if (lane == 0 && cnt_r) atomicAdd(&sh.count_r, cnt_r);
   __syncthreads();
   if (tid == 0) {
 #pragma unroll
@@ -701,6 +785,7 @@ pose_vel_bias_kernel(const Args a) {
       a.state[18 + k] = ba.a[k];
     }
     *a.n_inliers = sh.count;
+    if (a.rig) *a.n_right = sh.count_r;
   }
 }
 
@@ -716,13 +801,18 @@ extern "C" int msslam_pose_vel_bias(
     const float* R2, const float* p2, const float* v2, const float* X,
     const float* uv, const float* u_right, const float* sigma2,
     const uint8_t* mask, const float* walk, const float* g, float* state,
-    uint8_t* inlier, int* n_inliers, void* stream) {
-  if ((model != 0 && model != 1) || n < 0 || n_rounds < 0 || n_iters < 0)
+    uint8_t* inlier, int* n_inliers, const float* params2,
+    const float* T_rl, const float* right, uint8_t* inlier_r, int* n_right,
+    void* stream) {
+  const bool rig = params2 != nullptr;
+  if ((model != 0 && model != 1) || n < 0 || n_rounds < 0 || n_iters < 0
+      || (rig && (!T_rl || !right || !inlier_r || !n_right)))
     return (int)cudaErrorInvalidValue;
   const Args a{model, n, n_rounds, n_iters, bf, params, R_bc, t_bc, R1, p1,
                v1, bg1, ba1, dT, dR, dV, dP, JRg, JVg, JVa, JPg, JPa, bias,
                LT, R2, p2, v2, X, uv, u_right, sigma2, mask, walk, g, state,
-               inlier, n_inliers};
+               inlier, n_inliers, rig, params2, T_rl, right, inlier_r,
+               n_right};
   pose_vel_bias_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,10 @@ row of the state past an update clone it. Dtypes follow the reference
 (int32 indices, uint32 descriptor bits carried as int32).
 
 `map_state_from_numpy` / `map_state_to_numpy` carry a reference MapState
-across as numpy arrays, field by field.
+across as numpy arrays, field by field. The port's one field of its own,
+`kp_right` (the right keypoints of an unrectified pair), is carried only by
+a map that holds one, so a map without right observations keeps the
+reference's fields, key for key.
 """
 from __future__ import annotations
 
@@ -72,6 +75,10 @@ class MapState(NamedTuple):
     mp_visible: torch.Tensor      # (M,) int32
     mp_found: torch.Tensor        # (M,) int32
     mp_quarantine: torch.Tensor   # (M,) int32
+    kp_right: torch.Tensor = None
+    """(K,N,3) float32 [u, v, sigma2] of the keypoint's match in the right
+    image of an unrectified pair, -1 where there is none (every keypoint of
+    a rectified, RGB-D or monocular keyframe)."""
 
 
 def empty_map(cfg: MapConfig, device=None) -> MapState:
@@ -94,7 +101,7 @@ def empty_map(cfg: MapConfig, device=None) -> MapState:
         mp_valid=z(M, dtype=torch.bool), mp_sparsified=z(M, dtype=torch.bool),
         mp_first_kf=z(M, dtype=I32), mp_first_ord=z(M, dtype=I32),
         mp_visible=z(M, dtype=I32), mp_found=z(M, dtype=I32),
-        mp_quarantine=z(M, dtype=I32))
+        mp_quarantine=z(M, dtype=I32), kp_right=z(K, N, 3, fill=-1.0))
 
 
 _DESC_FIELDS = ("kp_desc", "mp_desc")
@@ -106,6 +113,9 @@ def map_state_from_numpy(d: dict, device=None) -> MapState:
     descriptor words keep their bits as int32."""
     out = {}
     for name in MapState._fields:
+        if name == "kp_right" and name not in d:
+            K, N = np.shape(d["kp_xy"])[:2]
+            d = {**d, name: np.full((K, N, 3), -1.0, np.float32)}
         a = np.array(d[name])            # a private, writable copy
         if name in _DESC_FIELDS:
             a = a.astype(np.uint32).view(np.int32)
@@ -118,10 +128,13 @@ def map_state_from_numpy(d: dict, device=None) -> MapState:
 
 
 def map_state_to_numpy(ms: MapState) -> dict:
-    """Inverse of map_state_from_numpy (descriptors back to uint32)."""
+    """Inverse of map_state_from_numpy (descriptors back to uint32);
+    `kp_right` only where some keyframe holds a right observation."""
     out = {}
     for name, t in ms._asdict().items():
         a = t.detach().cpu().numpy()
+        if name == "kp_right" and not (a[..., 0] >= 0).any():
+            continue
         out[name] = a.view(np.uint32) if name in _DESC_FIELDS else a
     return out
 
@@ -230,8 +243,10 @@ def gather_local_points(ms: MapState, mask: torch.Tensor, cap: int):
 
 def insert_keyframe(ms: MapState, slot, R, t, xy, octave, desc, uright,
                     depth, kp_valid, obs_mp, frame_id, kf_ord=None,
-                    angle=None) -> MapState:
-    """Write a keyframe into pool slot `slot` (a Python int), in place."""
+                    angle=None, right=None) -> MapState:
+    """Write a keyframe into pool slot `slot` (a Python int), in place.
+    `right`: the right keypoints of an unrectified pair; without them the
+    slot's stay -1, as every slot of a map that never has any."""
     if kf_ord is None:
         kf_ord = slot
     if angle is None:
@@ -251,6 +266,8 @@ def insert_keyframe(ms: MapState, slot, R, t, xy, octave, desc, uright,
     ms.kp_depth[slot] = depth
     ms.kp_valid[slot] = kp_valid
     ms.obs_mp[slot] = obs_mp
+    if right is not None:
+        ms.kp_right[slot] = right
     return ms
 
 

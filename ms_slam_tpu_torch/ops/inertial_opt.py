@@ -34,6 +34,15 @@ A test holds each against `torch.func.jacfwd`.
 
 The normal equations are solved with the `_ex` forms of `torch.linalg`,
 which do not check `info` on the host: no call here synchronizes.
+
+An unrectified stereo pair adds each right keypoint as a 2-row residual
+through the second lens (`rig`; upstream's
+`EdgeSE3ProjectXYZ[OnlyPose]ToBody`), with its own variance, the
+monocular gate and Huber weight. Every solver takes the right rows as a
+second copy of its factor table (index F + f for factor f), evaluated with
+the left rows in one pass (`_rows`), so its sums and Schur blocks run as
+they do over the left rows; without a rig the table is the left rows'
+alone.
 """
 from __future__ import annotations
 
@@ -102,6 +111,41 @@ def proj_res_jac(model: int, params, bf, R_cw, t_cw, p_wb, X, uv, ur,
     return rv, Xc, Jpose, Jpt
 
 
+def _rows(model: int, params, bf, R_cw, t_cw, p_wb, X, uv, ur, stereo,
+          jac: bool = True, pose_jac: bool = True, rig=None, xy_r=None):
+    """The visual rows of a solver: `proj_res_jac`'s. With a rig the
+    per-row inputs (R_cw, t_cw, p_wb, X, stereo) hold each factor twice,
+    F = len(uv) apart: the first F rows are the left camera's (monocular:
+    an unrectified pair has no u_right), the last F its right camera's
+    (`cameras.rig_project`). The returned camera points are the right
+    camera's for the right rows, and every third row is zero."""
+    if rig is None:
+        return proj_res_jac(model, params, bf, R_cw, t_cw, p_wb, X, uv, ur,
+                            stereo, jac, pose_jac)
+    F = uv.shape[0]
+    Xs, proj, J2 = cameras.rig_project(
+        model, params, rig, _mv(R_cw[:F], X[:F]) + t_cw[:F], jac)
+    zero = torch.zeros_like(Xs[..., :1])
+    rv = torch.cat([torch.cat([uv, xy_r]) - proj, zero], -1)
+    if not jac:
+        return rv, Xs, None, None
+    Jpt = -(torch.cat([J2, torch.zeros_like(J2[..., :1, :])], -2) @ R_cw)
+    if not pose_jac:
+        return rv, Xs, None, Jpt
+    return rv, Xs, torch.cat([-Jpt, Jpt @ lie.hat(X - p_wb)], -1), Jpt
+
+
+def _right_tables(rig, right, valid, w_info, hub_d2, stereo, dt):
+    """A solve's right copy of its factor table: the rig and the right
+    pixels in the solve's precision, and w_info, hub_d2, stereo and valid
+    each followed by the right rows' (`cameras.right_info`)."""
+    w_r, has = cameras.right_info(right, valid)
+    return (rig.to(dt), right[:, :2].to(dt), torch.cat([w_info, w_r.to(dt)]),
+            torch.cat([hub_d2, torch.full_like(hub_d2, robust.CHI2_2DOF)]),
+            torch.cat([stereo, torch.zeros_like(stereo)]),
+            torch.cat([valid, has]))
+
+
 def _cam_of_body(R, p, R_bc, t_bc):
     """T_cw of the camera riding on body pose (R, p): (T_wb T_bc)^-1."""
     R_cw = (R @ R_bc).transpose(-1, -2)
@@ -116,16 +160,21 @@ class PVBResult(NamedTuple):
     ba: torch.Tensor
     inlier: torch.Tensor
     n_inliers: torch.Tensor
+    inlier_r: torch.Tensor = None   # the right rows' flags (rig only)
+    n_right: torch.Tensor = None    # and their count
 
 
 def pose_vel_bias_optimize_plain(
         model: int, params, bf, R_bc, t_bc,
         R1, p1, v1, bg1, ba1, preint: imu.PreintState,
         R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info,
-        n_rounds: int = 4, n_iters: int = 6, g=None) -> PVBResult:
+        n_rounds: int = 4, n_iters: int = 6, g=None, *, rig=None,
+        right=None) -> PVBResult:
     """Optimize the current body state [p, R, v, bg, ba] given the last
     (fixed) state 1, the preintegration since then and visual matches.
-    R_bc/t_bc: the body-from-camera extrinsic T_bc. g: world gravity."""
+    R_bc/t_bc: the body-from-camera extrinsic T_bc. g: world gravity.
+    rig with right (N,3) [u, v, sigma2] (u < 0: none): the right-camera
+    rows."""
     dt = R2.dtype
     dev = R2.device
     params = params.to(dt)
@@ -149,6 +198,18 @@ def pose_vel_bias_optimize_plain(
         R_cw, t_cw = _cam_of_body(R, p, R_bc, t_bc)
         return proj_res_jac(model, params, bf, R_cw, t_cw, p, X, uv, u_right,
                             is_stereo, jac)
+
+    N = X.shape[0]
+    if rig is not None:
+        rig, xy_r, w_info, hub_d2, is_stereo, mask = _right_tables(
+            rig, right, mask, w_info, hub_d2, is_stereo, dt)
+        X2 = X.repeat(2, 1)
+
+        def visual(R, p, jac):
+            R_cw, t_cw = _cam_of_body(R, p, R_bc, t_bc)
+            return _rows(model, params, bf, R_cw.expand(2 * N, 3, 3),
+                         t_cw.expand(2 * N, 3), p.expand(2 * N, 3), X2, uv,
+                         u_right, is_stereo, jac, rig=rig, xy_r=xy_r)
 
     x = torch.zeros(15, dtype=dt, device=dev)
     inlier = mask
@@ -180,8 +241,13 @@ def pose_vel_bias_optimize_plain(
         chi2 = torch.sum(rv * rv, -1) * w_info
         inlier = mask & (chi2 <= hub_d2) & (Xc[..., 2] > 0)
     R, p, v, bg, ba = unpack(x)
+    inlier_r = n_right = None
+    if rig is not None:
+        inlier, inlier_r = inlier[:N], inlier[N:]
+        n_right = inlier_r.sum().to(torch.int32)
     return PVBResult(R_wb=R, p_wb=p, v=v, bg=bg, ba=ba, inlier=inlier,
-                     n_inliers=inlier.sum().to(torch.int32))
+                     n_inliers=inlier.sum().to(torch.int32),
+                     inlier_r=inlier_r, n_right=n_right)
 
 
 # ---------------------------------------------------------------------------
@@ -208,14 +274,15 @@ _PREINT_SHAPES = (("dT", ()), ("dR", (3, 3)), ("dV", (3,)), ("dP", (3,)),
 
 def _launch_args(model: int, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1,
                  preint: imu.PreintState, LT, R2, p2, v2, X, uv, u_right,
-                 sigma2, mask, walk_info, n_rounds: int, n_iters: int, g
-                 ) -> tuple[tuple, PVBResult]:
+                 sigma2, mask, walk_info, n_rounds: int, n_iters: int, g,
+                 rig=None, right=None) -> tuple:
     """The arguments of `msslam_pose_vel_bias` and the result tensors it
     fills (allocated here), after checking every input: contiguous
     float32 tensors of the plain version's shapes on R2's device, a bool
     mask. Raises ValueError otherwise. LT: the transposed
-    `imu.sqrt_information(preint)`. bf is read as a Python float. The
-    arguments hold the inputs' addresses only: the caller keeps the
+    `imu.sqrt_information(preint)`. bf is read as a Python float. With a
+    rig, its lens and T_rl and the (N,3) right keypoints too (else null
+    pointers). The arguments hold the inputs' addresses only: the caller keeps the
     tensors alive until the launch."""
     dev = R2.device
     if model not in (cameras.PINHOLE, cameras.KB8):
@@ -233,7 +300,10 @@ def _launch_args(model: int, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1,
               ("uv", uv, (N, 2)), ("u_right", u_right, (N,)),
               ("sigma2", sigma2, (N,)), ("walk_info", walk_info, (6,)),
               ("g", g, (3,))]
-    for name, t, shape in floats + [("mask", mask, (N,))]:
+    rig_floats = [] if rig is None else [
+        ("rig.params2", rig.params2, (8,)), ("rig.T", rig.T, (3, 4)),
+        ("right", right, (N, 3))]
+    for name, t, shape in floats + rig_floats + [("mask", mask, (N,))]:
         dtype = torch.bool if name == "mask" else torch.float32
         if t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous() or t.device != dev:
@@ -246,12 +316,21 @@ def _launch_args(model: int, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1,
                     inlier=torch.empty(N, dtype=torch.bool, device=dev),
                     n_inliers=torch.empty((), dtype=torch.int32,
                                           device=dev))
+    rig_args = (None,) * 5
+    if rig is not None:
+        out = out._replace(
+            inlier_r=torch.empty(N, dtype=torch.bool, device=dev),
+            n_right=torch.empty((), dtype=torch.int32, device=dev))
+        rig_args = (rig.params2.data_ptr(), rig.T.data_ptr(),
+                    right.data_ptr(), out.inlier_r.data_ptr(),
+                    out.n_right.data_ptr())
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else None)
     args = (model, float(bf), N, int(n_rounds), int(n_iters),
             *[t.data_ptr() for _, t, _ in floats[:-2]], mask.data_ptr(),
             walk_info.data_ptr(), g.data_ptr(), state.data_ptr(),
-            out.inlier.data_ptr(), out.n_inliers.data_ptr(), stream)
+            out.inlier.data_ptr(), out.n_inliers.data_ptr(), *rig_args,
+            stream)
     return args, out
 
 
@@ -263,7 +342,7 @@ def load_kernel() -> ctypes.CDLL:
     fn = lib.msslam_pose_vel_bias
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p] * 33
+            + [ctypes.c_void_p] * 38
         fn.restype = ctypes.c_int
     return lib
 
@@ -272,19 +351,20 @@ def pose_vel_bias_optimize(
         model: int, params, bf, R_bc, t_bc,
         R1, p1, v1, bg1, ba1, preint: imu.PreintState,
         R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info,
-        n_rounds: int = 4, n_iters: int = 6, g=None, *,
-        timing=None) -> PVBResult:
+        n_rounds: int = 4, n_iters: int = 6, g=None, *, rig=None,
+        right=None, timing=None) -> PVBResult:
     """`pose_vel_bias_optimize_plain` by the tensors' device: a CPU tensor
     takes the plain version; a CUDA tensor launches the kernel
     (csrc/pose_vel_bias.cu) on the current stream, or raises ValueError
-    for inputs it does not take (`_launch_args`). Given a `Timing`, the
-    launch is the span `pvb_opt.kernel`."""
+    for inputs it does not take (`_launch_args`). rig / right: the
+    right-camera rows, in the same launch. Given a `Timing`, the launch is
+    the span `pvb_opt.kernel`."""
     if R2.device.type == "cpu":
         _count("pvb_plain_calls")
         return pose_vel_bias_optimize_plain(
             model, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1, preint,
             R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info, n_rounds,
-            n_iters, g)
+            n_iters, g, rig=rig, right=right)
     if R2.device.type != "cuda":
         raise ValueError(f"no pose_vel_bias_optimize for device {R2.device}")
     if g is None:
@@ -292,7 +372,8 @@ def pose_vel_bias_optimize(
     LT = imu.sqrt_information(preint).transpose(-1, -2).contiguous()
     args, out = _launch_args(model, params, bf, R_bc, t_bc, R1, p1, v1, bg1,
                              ba1, preint, LT, R2, p2, v2, X, uv, u_right,
-                             sigma2, mask, walk_info, n_rounds, n_iters, g)
+                             sigma2, mask, walk_info, n_rounds, n_iters, g,
+                             rig, right)
     fn = load_kernel().msslam_pose_vel_bias
     with span(timing, "pvb_opt.kernel"):
         rc = fn(*args)
@@ -556,7 +637,8 @@ def vi_window_ba(
         preints: imu.PreintState, preint_valid, bg0, ba0, g,
         mp_pos, f_pt, f_kf, f_uv, f_ur, f_sigma2, f_valid,
         a_Rcw, a_tcw, a_cam, a_pt, a_uv, a_ur, a_sigma2, a_valid,
-        walk_info, R_bc=None, t_bc=None, n_iters: int = 5) -> VIWindowResult:
+        walk_info, R_bc=None, t_bc=None, n_iters: int = 5, *, rig=None,
+        f_right=None, a_right=None) -> VIWindowResult:
     """Full visual-inertial local BA (ref Optimizer::LocalInertialBA):
     jointly refine the temporal window keyframes' poses and velocities, the
     shared bias, the gravity direction AND the observed landmarks, with
@@ -567,7 +649,10 @@ def vi_window_ba(
 
     Joint Gauss-Newton with Schur elimination of the landmarks. A visual
     factor touches only its own keyframe's 6 pose columns, so the coupling
-    is kept as (M, W, 6, 3) instead of the reference's (M, 9W+8, 3)."""
+    is kept as (M, W, 6, 3) instead of the reference's (M, 9W+8, 3).
+
+    rig with f_right / a_right ((F,3) / (A,3) [u, v, sigma2], u < 0: none):
+    the right-camera rows of the window's and the anchors' factors."""
     ch = _Chain(R_wb, p_wb, vels, kf_mask, preints, preint_valid, bg0, ba0,
                 g, walk_info, R_bc, t_bc)
     W, D, dt, dev = ch.W, ch.D, ch.dt, ch.dev
@@ -585,6 +670,15 @@ def vi_window_ba(
     hub_d2 = torch.where(is_stereo, robust.CHI2_3DOF, robust.CHI2_2DOF).to(dt)
     a_hub_d2 = torch.where(a_is_stereo, robust.CHI2_3DOF,
                            robust.CHI2_2DOF).to(dt)
+    xy_r = a_xy_r = None
+    if rig is not None:
+        _, xy_r, w_info, hub_d2, is_stereo, f_valid = _right_tables(
+            rig, f_right, f_valid, w_info, hub_d2, is_stereo, dt)
+        rig, a_xy_r, a_w_info, a_hub_d2, a_is_stereo, a_valid = \
+            _right_tables(rig, a_right, a_valid, a_w_info, a_hub_d2,
+                          a_is_stereo, dt)
+        f_pt, f_kf = f_pt.repeat(2), f_kf.repeat(2)
+        a_pt, a_cam = a_pt.repeat(2), a_cam.repeat(2)
     a_R = a_Rcw[a_cam]
     a_t = a_tcw[a_cam]
     touched = torch.zeros(M, dtype=dt, device=dev).index_add_(
@@ -596,9 +690,9 @@ def vi_window_ba(
     P_all = mp_pos.to(dt)
     for _ in range(n_iters):
         R, p, v, bg, ba, R_cw, t_cw, dth = ch.unpack(x)
-        rv, Xc, Jpose, Jp = proj_res_jac(
+        rv, Xc, Jpose, Jp = _rows(
             model, params, bf, R_cw[f_kf], t_cw[f_kf], p[f_kf], P_all[f_pt],
-            f_uv, f_ur, is_stereo)
+            f_uv, f_ur, is_stereo, rig=rig, xy_r=xy_r)
         sw = torch.sqrt(_point_weights(rv, Xc, w_info, hub_d2))
         Jl = lie.so3_left_jacobian(dth)
         J6 = torch.cat([Jpose[..., :3], Jpose[..., 3:] @ Jl[f_kf]], -1) \
@@ -616,9 +710,9 @@ def vi_window_ba(
                 0, f_kf, _mv(J6.transpose(-1, -2), rvw)))
 
         # anchor factors: fixed cameras, landmarks free
-        arv, aXc, _, aJp = proj_res_jac(model, params, bf, a_R, a_t, None,
-                                        P_all[a_pt], a_uv, a_ur, a_is_stereo,
-                                        pose_jac=False)
+        arv, aXc, _, aJp = _rows(model, params, bf, a_R, a_t, None,
+                                 P_all[a_pt], a_uv, a_ur, a_is_stereo,
+                                 pose_jac=False, rig=rig, xy_r=a_xy_r)
         aw = _point_weights(arv, aXc, a_w_info, a_hub_d2) * a_valid
         aJpW = aJp * aw[:, None, None]
         Hpp = torch.zeros(M, 3, 3, dtype=dt, device=dev)
@@ -659,7 +753,8 @@ def vi_full_ba(
         preints: imu.PreintState, preint_valid, bg0, ba0, g,
         mp_pos, f_pt, f_kf, f_uv, f_ur, f_sigma2, f_valid, walk_info,
         R_bc=None, t_bc=None, n_iters: int = 4,
-        cg_iters: int = 64) -> VIWindowResult:
+        cg_iters: int = 64, *, rig=None,
+        f_right=None) -> VIWindowResult:
     """JOINT whole-chain visual-inertial BA (ref Optimizer::FullInertialBA,
     run after a loop correction): one optimization over every temporal
     keyframe of the active map: poses, velocities, shared bias, gravity
@@ -672,7 +767,9 @@ def vi_full_ba(
     pose, as the reference takes them. Gauge: the oldest chain keyframe's
     pose is hard-fixed (velocity and bias stay free). The chain may have
     any length; masked keyframes (`kf_mask`) and intervals
-    (`preint_valid`) drop out, so a padded chain gives the same result."""
+    (`preint_valid`) drop out, so a padded chain gives the same result.
+    rig with f_right (F,3) [u, v, sigma2] (u < 0: none): the right-camera
+    rows."""
     ch = _Chain(R_wb, p_wb, vels, kf_mask, preints, preint_valid, bg0, ba0,
                 g, walk_info, R_bc, t_bc)
     W, D, dt, dev = ch.W, ch.D, ch.dt, ch.dev
@@ -684,6 +781,11 @@ def vi_full_ba(
     zero = torch.zeros((), dtype=dt, device=dev)
     w_info = torch.where(f_valid, 1.0 / torch.clamp(f_sigma2, min=1e-12), zero)
     hub_d2 = torch.where(is_stereo, robust.CHI2_3DOF, robust.CHI2_2DOF).to(dt)
+    xy_r = None
+    if rig is not None:
+        rig, xy_r, w_info, hub_d2, is_stereo, f_valid = _right_tables(
+            rig, f_right, f_valid, w_info, hub_d2, is_stereo, dt)
+        f_pt, f_kf = f_pt.repeat(2), f_kf.repeat(2)
     free_kf = ((f_kf != 0) & f_valid).to(dt)
     touched = torch.zeros(M, dtype=dt, device=dev).index_add_(
         0, f_pt, f_valid.to(dt)) > 0
@@ -694,9 +796,9 @@ def vi_full_ba(
     P_all = mp_pos.to(dt)
     for _ in range(n_iters):
         R, p, v, bg, ba, R_cw, t_cw, dth = ch.unpack(x)
-        rv, Xc, J6, Jp = proj_res_jac(
+        rv, Xc, J6, Jp = _rows(
             model, params, bf, R_cw[f_kf], t_cw[f_kf], p[f_kf], P_all[f_pt],
-            f_uv, f_ur, is_stereo)
+            f_uv, f_ur, is_stereo, rig=rig, xy_r=xy_r)
         sw = torch.sqrt(_point_weights(rv, Xc, w_info, hub_d2))
         J6w = J6 * (sw * free_kf)[:, None, None]
         Jpw = Jp * sw[:, None, None]

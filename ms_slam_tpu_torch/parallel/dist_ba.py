@@ -361,9 +361,14 @@ def dist_global_ba(ms, calib, orb_cfg, fixed_kf: int, mesh: Mesh,
     (ref Optimizer::GlobalBundleAdjustemnt via RunGlobalBundleAdjustment).
     Builds the same full factor table as pipeline.mapping_ops.global_ba,
     runs the sharded Schur-CG solver and returns the updated MapState (the
-    argument's tensors are left as they were)."""
+    argument's tensors are left as they were). An unrectified stereo pair
+    is refused (ValueError): the sharded table has no right-camera rows,
+    and without them the map's scale is free."""
     from ..pipeline.mapping_ops import _scale2
 
+    if calib.is_fisheye_stereo:
+        raise ValueError("dist_global_ba takes no right-camera rows: an "
+                         "unrectified stereo pair goes to global_ba")
     dev = ms.kf_R.device
     K, N = ms.obs_mp.shape
     obs = ms.obs_mp

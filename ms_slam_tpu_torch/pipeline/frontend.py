@@ -7,7 +7,9 @@ pyramids, both images of a pair in one batch; then, by sensor:
 - stereo fisheye (two Kannala-Brandt8 cameras, unrectified): mutual
   descriptor matching inside the lapping areas with the rotation histogram,
   DLT triangulation of the matched bearings polished by two Gauss-Newton
-  steps over both reprojections, then depth and reprojection gates;
+  steps over both reprojections, then depth and reprojection gates; each
+  kept pair also hands on its right keypoint (pixel and variance), which
+  the solvers observe through the second lens;
 - RGB-D: each keypoint reads the registered depth map and gets a virtual
   right coordinate u - bf/d;
 - monocular: features only.
@@ -17,12 +19,14 @@ is, and only `ops/orb.py` and `ops/stereo.py` widen what they read of it.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import cameras, lie, matching, orb, stereo, triangulate
+from ..utils.trace import span
 
 
 class Calib(NamedTuple):
@@ -56,6 +60,15 @@ class Calib(NamedTuple):
         p[:len(src)] = src
         return torch.from_numpy(p).to(device)
 
+    def rig(self, device=None):
+        """The second camera as a `cameras.Rig` (float32, on `device`) for
+        an unrectified pair, None for any other calibration. Made once per
+        calibration and device: callers read it and never write it."""
+        if not self.is_fisheye_stereo:
+            return None
+        return _rig(tuple(self.params2), tuple(self.T_rl),
+                    str(torch.device(device or "cpu")))
+
     @property
     def is_fisheye_stereo(self) -> bool:
         return len(self.T_rl) == 12
@@ -65,6 +78,15 @@ class Calib(NamedTuple):
         return max(self.bf / self.params[0], 0.1)
 
 
+@functools.lru_cache(maxsize=8)
+def _rig(params2: tuple, T_rl: tuple, device: str) -> cameras.Rig:
+    p = np.zeros(8, np.float32)
+    p[:len(params2)] = params2
+    T = np.asarray(T_rl, np.float32).reshape(3, 4)
+    return cameras.Rig(params2=torch.from_numpy(p).to(device),
+                       T=torch.from_numpy(T).to(device))
+
+
 class FrameData(NamedTuple):
     """Device-resident per-frame working state (ref Frame object)."""
 
@@ -72,6 +94,9 @@ class FrameData(NamedTuple):
     u_right: torch.Tensor   # (N,)
     depth: torch.Tensor     # (N,)
     sigma2: torch.Tensor    # (N,) per-octave measurement variance
+    right: torch.Tensor = None
+    """(N,3) [u, v, sigma2] of each keypoint's match in the right image of
+    an unrectified pair, -1 where it has none; None for other sensors."""
 
 
 def _extract(imgs: torch.Tensor, orb_cfg: orb.OrbConfig):
@@ -112,14 +137,28 @@ def _process_stereo_impl(img_l, img_r, calib: Calib,
 
 
 def process_stereo_fisheye(imgs: torch.Tensor, calib: Calib,
-                           orb_cfg: orb.OrbConfig) -> FrameData:
+                           orb_cfg: orb.OrbConfig, *, timing=None
+                           ) -> FrameData:
     """Unrectified stereo-fisheye frontend on a stacked (2,H,W) uint8 pair
-    of KB8 images. Matched features get a triangulated left-camera depth;
-    u_right stays -1 (there is no rectified right coordinate), so every
-    residual downstream is a monocular one."""
+    of KB8 images. Matched features get a triangulated left-camera depth
+    and carry their right keypoint in `right`; u_right stays -1 (there is
+    no rectified right coordinate), so no stereo (3-row) residual appears,
+    and the solvers add a 2-row residual through the right lens instead.
+
+    Unlike upstream, only stereo-matched pairs give right observations:
+    right-image keypoints with no left match are dropped, and tracking does
+    not search map points in the right image. Given a `Timing`, the pair's
+    matching, triangulation and gates are the span `frontend.kb8_pair`."""
     dev = imgs.device
     (f_l, f_r), _ = _extract(imgs, orb_cfg)
+    with span(timing, "frontend.kb8_pair"):
+        return _fisheye_pair(f_l, f_r, calib, orb_cfg, dev)
 
+
+def _fisheye_pair(f_l, f_r, calib: Calib, orb_cfg: orb.OrbConfig, dev
+                  ) -> FrameData:
+    """Mutual matching, DLT, the polish and the gates of
+    `process_stereo_fisheye`."""
     x0l, x1l, x0r, x1r = (calib.lapping if len(calib.lapping) == 4
                           else (0, calib.width, 0, calib.width))
     lap_l = (f_l.xy[:, 0] >= x0l) & (f_l.xy[:, 0] <= x1l)
@@ -176,8 +215,10 @@ def process_stereo_fisheye(imgs: torch.Tensor, calib: Calib,
     good = (has & (z_l > min_z) & (z_r > min_z)
             & (e_l < 5.991 * s2_l) & (e_r < 5.991 * s2_r))
     depth = torch.where(good, z_l, torch.full_like(z_l, -1.0))
+    right = torch.where(good[:, None], torch.cat([xy_r, s2_r[:, None]], 1),
+                        torch.full((N, 3), -1.0, device=dev))
     return FrameData(feats=f_l, u_right=torch.full((N,), -1.0, device=dev),
-                     depth=depth, sigma2=s2_l)
+                     depth=depth, sigma2=s2_l, right=right)
 
 
 def process_rgbd(img: torch.Tensor, depth_map: torch.Tensor, calib: Calib,
@@ -213,8 +254,9 @@ def process_mono(img: torch.Tensor, calib: Calib,
 
 def frame_data_from_numpy(d: dict, device=None) -> FrameData:
     """FrameData from the reference's fields as numpy arrays: keys xy,
-    response, angle, octave, desc, valid, u_right, depth, sigma2 (desc
-    uint32 words keep their bits as int32)."""
+    response, angle, octave, desc, valid, u_right, depth, sigma2 and, for
+    an unrectified pair, right (desc uint32 words keep their bits as
+    int32)."""
     def t(name, dtype=None):
         a = np.array(d[name], dtype=dtype)   # a private, writable copy
         if name == "desc":
@@ -227,13 +269,15 @@ def frame_data_from_numpy(d: dict, device=None) -> FrameData:
                          valid=t("valid", bool))
     return FrameData(feats=feats, u_right=t("u_right", np.float32),
                      depth=t("depth", np.float32),
-                     sigma2=t("sigma2", np.float32))
+                     sigma2=t("sigma2", np.float32),
+                     right=t("right", np.float32) if "right" in d else None)
 
 
 def frame_data_to_numpy(fr: FrameData) -> dict:
     """Inverse of frame_data_from_numpy (desc back to uint32 words)."""
     out = {k: v.detach().cpu().numpy() for k, v in fr.feats._asdict().items()}
     out["desc"] = out["desc"].view(np.uint32)
-    for k in ("u_right", "depth", "sigma2"):
-        out[k] = getattr(fr, k).detach().cpu().numpy()
+    for k in ("u_right", "depth", "sigma2", "right"):
+        if getattr(fr, k) is not None:
+            out[k] = getattr(fr, k).detach().cpu().numpy()
     return out

@@ -695,9 +695,10 @@ class LoopCloser:
         local solve: SystemConfig.dist_ba_devices > 1 asks for one, and the
         System's device must offer that many devices (a CPU System up to 8
         shards, a card System one per card, as the reference counts
-        jax.devices())."""
+        jax.devices()). An unrectified stereo pair takes the local solve,
+        the one with its right-camera rows."""
         n_dist = self.sys.cfg.dist_ba_devices
-        if n_dist <= 1:
+        if n_dist <= 1 or self.sys.calib.is_fisheye_stereo:
             return None
         offered = dist_ba.devices_offered(self.sys.device)
         if len(offered) < n_dist:

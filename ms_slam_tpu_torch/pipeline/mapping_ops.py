@@ -5,6 +5,9 @@ stereo map-point spawning, batched triangulation against covisible
 neighbours, duplicate fusion, the Schur window BA, point culling and
 keyframe culling. The reference runs `keyframe_step` as one jit that
 donates `ms`; here the same steps update the MapState tensors in place.
+An unrectified stereo pair's keyframes keep their right keypoints
+(`kp_right`), and the window BA and the global BA observe them through the
+second camera.
 """
 from __future__ import annotations
 
@@ -24,6 +27,15 @@ I32 = torch.int32
 def _scale2(orb_cfg: OrbConfig, device):
     return torch.tensor([s * s for s in orb_cfg.level_scales()],
                         dtype=torch.float32, device=device)
+
+
+def rig_factors(ms: M.MapState, calib: Calib, rows, device) -> dict:
+    """The BA's right-camera arguments: the rig and the keyframe rows'
+    right keypoints, one per factor; none for other calibrations."""
+    if not calib.is_fisheye_stereo:
+        return {}
+    return {"rig": calib.rig(device),
+            "f_right": ms.kp_right[rows].reshape(-1, 3)}
 
 
 def _P(R, t, n):
@@ -62,7 +74,7 @@ def create_keyframe(ms: M.MapState, calib: Calib, slot: int,
 
     ms = M.insert_keyframe(ms, slot, R, t, f.xy, f.octave, f.desc,
                            frame.u_right, frame.depth, f.valid, obs, frame_id,
-                           kf_ord=kf_ord, angle=f.angle)
+                           kf_ord=kf_ord, angle=f.angle, right=frame.right)
     n = new_mask.shape[0]
     ms = M.add_map_points(ms, slots, ok, Xw, f.desc, normal, min_dist,
                           max_dist, torch.full((n,), slot, dtype=I32,
@@ -266,7 +278,7 @@ def _local_ba_impl(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
         f_cam.reshape(-1), f_pt_dense.clamp(min=0).reshape(-1),
         ms.kp_xy[cams].reshape(C * N, 2), ms.kp_uright[cams].reshape(-1),
         f_sigma2.reshape(-1), f_valid.reshape(-1), n_iters=n_iters,
-        cam_blocked=True)
+        cam_blocked=True, **rig_factors(ms, calib, cams, dev))
 
     K = ms.kf_R.shape[0]
     wb = torch.where(win_mask, win_idx, K)
@@ -317,7 +329,8 @@ def global_ba(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig, fixed_kf,
         obs.clamp(min=0).reshape(-1), ms.kp_xy.reshape(K * N, 2),
         ms.kp_uright.reshape(-1),
         _scale2(orb_cfg, dev)[ms.kp_octave.long()].reshape(-1),
-        f_valid.reshape(-1), n_sweeps=n_sweeps)
+        f_valid.reshape(-1), n_sweeps=n_sweeps,
+        **rig_factors(ms, calib, slice(None), dev))
     return ms._replace(kf_R=R_n, kf_t=t_n, mp_pos=P_n)
 
 

@@ -84,7 +84,7 @@ from ..ops import inertial_opt, matching, twoview
 from ..ops.lie import rot_to_quat
 from ..ops.orb import OrbConfig
 from ..utils import viewer
-from ..utils.trace import Timing, span, sync
+from ..utils.trace import Timing, count, span, sync
 from . import mapping_ops as mo
 from . import tracking_ops as to
 from .frontend import (Calib, FrameData, process_mono, process_rgbd,
@@ -374,7 +374,10 @@ class System:
         else:
             stacked = stacked.to(self.device)
         if self.calib.is_fisheye_stereo:
-            return process_stereo_fisheye(stacked, self.calib, self.orb)
+            # a prefetch runs on a worker thread: its pair takes no span
+            return process_stereo_fisheye(
+                stacked, self.calib, self.orb,
+                timing=None if pinned else self.timing)
         return process_stereo_stacked(stacked, self.calib, self.orb)
 
     def _prefetch_frontend(self, img_l, img_r):
@@ -1028,6 +1031,8 @@ class System:
         self.vel = T_now @ np.linalg.inv(T_last)
         self.last_R = R_np
         self.last_t = t_np
+        if self.calib.is_fisheye_stereo:
+            count(self.timing, "rig.right_rows", packed[-1])
         if fl.imu_used:
             self.vel_w = packed[33:36].astype(np.float32)
             self.imu_bias = packed[36:42].astype(np.float32)
@@ -1677,6 +1682,15 @@ class System:
                 ms.kp_xy[sl].reshape(-1, 2), ms.kp_uright[sl].reshape(-1),
                 s2[ms.kp_octave[sl].long()].reshape(-1), f_valid.reshape(-1))
 
+    def _rig_factors(self, sl, anchors: bool = False) -> dict:
+        """The inertial BAs' right-camera arguments
+        (`mapping_ops.rig_factors` of the keyframe slots `sl`), with
+        `anchors` also every slot's right keypoints, the anchors' table."""
+        out = mo.rig_factors(self.ms, self.calib, sl, self.device)
+        if out and anchors:
+            out["a_right"] = self.ms.kp_right.reshape(-1, 3)
+        return out
+
     def _adopt_vi_result(self, res, slots, sl, kf_mask) -> bool:
         """Write a visual-inertial BA's result into the map and the host
         state. A solve that blew up (e.g. a degenerate window) is dropped
@@ -1746,7 +1760,8 @@ class System:
             torch.as_tensor(self.gravity, dtype=f32, device=dev),
             self.ms.mp_pos, *self._window_factors(sl, kf_mask),
             walk_info=torch.full((6,), 1e8, dtype=f32, device=dev),
-            R_bc=self._Tbc_dev[0], t_bc=self._Tbc_dev[1])
+            R_bc=self._Tbc_dev[0], t_bc=self._Tbc_dev[1],
+            **self._rig_factors(sl))
         if self._adopt_vi_result(res, slots, sl, kf_mask):
             self.vel_w = self.kf_velocities[slots[-1]]
 
@@ -1797,7 +1812,8 @@ class System:
             # biases should follow slow real walks, not absorb the visual
             # map's drift
             walk_info=torch.full((6,), 1e8, dtype=f32, device=dev),
-            R_bc=self._Tbc_dev[0], t_bc=self._Tbc_dev[1])
+            R_bc=self._Tbc_dev[0], t_bc=self._Tbc_dev[1],
+            **self._rig_factors(sl, anchors=True))
         if self._adopt_vi_result(res, slots, sl, kf_mask) \
                 and slots and slots[-1] == self.kf_order[-1]:
             self.vel_w = self.kf_velocities[slots[-1]]

@@ -21,6 +21,10 @@ and in the inertial step `imu.predict` and `pvb_opt`; inside them `search`
 around each `search_by_projection`, `pose_opt` around each
 `pose_optimize` and, on the card, `pvb_opt.kernel` around the launch of
 `pose_vel_bias_optimize`'s kernel.
+
+For an unrectified stereo pair (`calib.rig`) every solver also takes each
+match's right keypoint (`FrameData.right`) as a right-camera row, and the
+stats pack ends with the right rows the frame's solves kept as inliers.
 """
 from __future__ import annotations
 
@@ -43,6 +47,16 @@ class TrackOut(NamedTuple):
     matched_mp: torch.Tensor   # (N,) per-feature map point idx (-1 none)
     n_matched: torch.Tensor
     n_inliers: torch.Tensor
+    n_right: torch.Tensor = None   # right rows kept (unrectified pair)
+
+
+def _rig_kwargs(calib: Calib, frame: FrameData, device) -> dict:
+    """pose_optimize's right-camera arguments for this frame: none unless
+    the calibration is an unrectified pair and the frame has right
+    keypoints."""
+    if frame.right is None or not calib.is_fisheye_stereo:
+        return {}
+    return {"rig": calib.rig(device), "right": frame.right}
 
 
 def track_points(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
@@ -73,10 +87,12 @@ def track_points(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
     with span(timing, "pose_opt"):
         res = pose_opt.pose_optimize(
             calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
-            frame.sigma2, has, n_rounds=opt_rounds, n_iters=opt_iters)
+            frame.sigma2, has, n_rounds=opt_rounds, n_iters=opt_iters,
+            **_rig_kwargs(calib, frame, R0.device))
     matched = torch.where(res.inlier, mp_of_feat, -1)
     return TrackOut(R=res.R, t=res.t, matched_mp=matched,
-                    n_matched=pm.n_matches, n_inliers=res.n_inliers)
+                    n_matched=pm.n_matches, n_inliers=res.n_inliers,
+                    n_right=res.n_right)
 
 
 def track_by_appearance(ms: M.MapState, calib: Calib, frame: FrameData,
@@ -97,10 +113,11 @@ def track_by_appearance(ms: M.MapState, calib: Calib, frame: FrameData,
     with span(timing, "pose_opt"):
         res = pose_opt.pose_optimize(
             calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
-            frame.sigma2, has)
+            frame.sigma2, has, **_rig_kwargs(calib, frame, R0.device))
     matched = torch.where(res.inlier, mp, -1).to(torch.int32)
     return TrackOut(R=res.R, t=res.t, matched_mp=matched,
-                    n_matched=mm.n_matches, n_inliers=res.n_inliers)
+                    n_matched=mm.n_matches, n_inliers=res.n_inliers,
+                    n_right=res.n_right)
 
 
 def track_by_pnp(ms: M.MapState, calib: Calib, frame: FrameData, kf: int,
@@ -127,10 +144,11 @@ def track_by_pnp(ms: M.MapState, calib: Calib, frame: FrameData, kf: int,
     t0 = torch.where(res_pnp.ok, res_pnp.t, ms.kf_t[kf])
     res = pose_opt.pose_optimize(
         calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
-        frame.sigma2, has)
+        frame.sigma2, has, **_rig_kwargs(calib, frame, R0.device))
     matched = torch.where(res.inlier, mp, -1).to(torch.int32)
     return TrackOut(R=res.R, t=res.t, matched_mp=matched,
-                    n_matched=mm.n_matches, n_inliers=res.n_inliers)
+                    n_matched=mm.n_matches, n_inliers=res.n_inliers,
+                    n_right=res.n_right)
 
 
 class TrackFullOut(NamedTuple):
@@ -144,7 +162,8 @@ class TrackFullOut(NamedTuple):
     best_local_kf, n_local_candidates, n_ref_matches, ref-KF R (9),
     ref-KF t (3)] — the reference's packed layout, one fetch per frame.
     `track_full_imu` appends the body velocity (33:36) and the bias
-    [bg, ba] (36:42)."""
+    [bg, ba] (36:42); an unrectified pair then the right rows kept (last
+    entry)."""
     v: torch.Tensor = None      # body velocity, world frame (inertial step)
     bias: torch.Tensor = None   # [bg, ba] (inertial step)
 
@@ -162,8 +181,9 @@ def _track_core(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
                 frame: FrameData, R0, t0, R_last, t_last, last_matched,
                 ref_kf: int, local_cap: int, obs_mask=None, *, timing=None):
     """Motion-model matching (+ widened retry + appearance fallback), then
-    local-map tracking. Returns (out3, out4, local): the cascade's and the
-    local map's tracks, and what `_track_stats` needs of the local map."""
+    local-map tracking. Returns (out3, out4, local, n_right): the
+    cascade's and the local map's tracks, what `_track_stats` needs of the
+    local map, and the right rows the solves kept (None without any)."""
     pt_idx = last_matched.clamp(min=0)
     pt_valid = last_matched >= 0
     with span(timing, "track.motion"):
@@ -191,7 +211,15 @@ def _track_core(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
         out4 = track_points(ms, calib, orb_cfg, frame, out3.R, out3.t,
                             l_idx, l_valid, 1.0, 0.8, rotation_gate=False,
                             opt_rounds=4, opt_iters=10, timing=timing)
-    return out3, out4, (need_wide, need_fb, lk_idx, l_idx, l_valid)
+    n_right = None
+    if out4.n_right is not None:
+        # every solve that ran: the cascade's calls, then the local map's
+        n_right = out1.n_right + out4.n_right
+        if need_wide:
+            n_right = n_right + out2.n_right
+        if need_fb:
+            n_right = n_right + out3.n_right
+    return out3, out4, (need_wide, need_fb, lk_idx, l_idx, l_valid), n_right
 
 
 def _track_stats(ms, calib, frame, out3, out4, local, R, t, n_inliers,
@@ -215,6 +243,12 @@ def _track_stats(ms, calib, frame, out3, out4, local, R, t, n_inliers,
     return ms, _pack_stats(ms, R, t, stats_i, best_kf, extra)
 
 
+def _right_extra(n_right) -> tuple:
+    """The stats pack's last entry for an unrectified pair: the right rows
+    the frame's solves kept."""
+    return () if n_right is None else (n_right.reshape(1),)
+
+
 def _pack_stats(ms, R, t, stats_i, best_kf, extra=()):
     return torch.cat([R.reshape(9).float(), t.float(), stats_i.float(),
                       ms.kf_R[best_kf].reshape(9).float(),
@@ -231,12 +265,13 @@ def track_full(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
     `ms` in place) and the keyframe-decision counters."""
     R0, t0 = _predict_const_velocity(R_last, t_last, R_last2, t_last2,
                                      has_vel)
-    out3, out4, local = _track_core(
+    out3, out4, local, n_right = _track_core(
         ms, calib, orb_cfg, frame, R0, t0, R_last, t_last, last_matched,
         ref_kf, local_cap, obs_mask, timing=timing)
     with span(timing, "track.stats"):
         ms, stats = _track_stats(ms, calib, frame, out3, out4, local, out4.R,
-                                 out4.t, out4.n_inliers, n_obs_all)
+                                 out4.t, out4.n_inliers, n_obs_all,
+                                 _right_extra(n_right))
     return TrackFullOut(ms=ms, R=out4.R, t=out4.t,
                         matched_mp=out4.matched_mp, stats=stats)
 
@@ -283,7 +318,7 @@ def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
             + R_wb1 @ preint.dP
         R0, t0 = cam_of_body(R_wb2, p_wb2)
 
-    out3, out4, local = _track_core(
+    out3, out4, local, n_right = _track_core(
         ms, calib, orb_cfg, frame, R0, t0, R_last, t_last, last_matched,
         ref_kf, local_cap, obs_mask, timing=timing)
 
@@ -298,7 +333,9 @@ def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
             v2, X, frame.feats.xy, frame.u_right, frame.sigma2, has,
             walk_info=torch.full((6,), 1e4, dtype=R_wb4.dtype,
                                  device=R_wb4.device), g=gravity,
-            timing=timing)
+            timing=timing, **_rig_kwargs(calib, frame, R0.device))
+        if n_right is not None:
+            n_right = n_right + pvb.n_right
         # the joint solution is taken when it keeps at least as many inliers
         use = (pvb.n_inliers >= out4.n_inliers) & (dT > 0)
         R_c, t_c = cam_of_body(pvb.R_wb, pvb.p_wb)
@@ -310,7 +347,8 @@ def track_full_imu(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
         n_inl = torch.where(use, pvb.n_inliers, out4.n_inliers)
     with span(timing, "track.stats"):
         ms, stats = _track_stats(ms, calib, frame, out3, out4, local, R_n,
-                                 t_n, n_inl, n_obs_all, extra=(v_n, bias_n))
+                                 t_n, n_inl, n_obs_all,
+                                 extra=(v_n, bias_n) + _right_extra(n_right))
     return TrackFullOut(ms=ms, R=R_n, t=t_n, matched_mp=matched,
                         stats=stats, v=v_n, bias=bias_n)
 

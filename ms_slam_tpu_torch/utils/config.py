@@ -307,8 +307,6 @@ class Settings:
         th_depth = float(g("ThDepth", "Camera.ThDepth", "Stereo.ThDepth",
                            default=35.0))
         fps = float(g("Camera.fps", default=10.0) or 10.0)
-        # ThDepth is in units of baseline (ref: mThDepth = mbf*ThDepth/fx)
-        th_depth_m = bf * th_depth / fx if bf > 0 else 1e9
         # stereo-fisheye second camera (ref Settings::readCamera2 +
         # Stereo.T_c1_c2 + Camera1/2.overlappingBegin/End): two unrectified
         # KB8 cameras
@@ -337,6 +335,9 @@ class Settings:
                              default=width or 10 ** 6)))
             if bf <= 0:
                 bf = float(np.linalg.norm(T12[:3, 3])) * fx
+        # ThDepth is in units of baseline (ref: mThDepth = mbf*ThDepth/fx),
+        # after a KB8 pair's bf has come from its T_c1_c2
+        th_depth_m = bf * th_depth / fx if bf > 0 else 1e9
         return Calib(model=model, params=params, bf=bf, width=width,
                      height=height, th_depth=th_depth_m, fps=fps,
                      params2=params2, T_rl=T_rl, lapping=lapping)

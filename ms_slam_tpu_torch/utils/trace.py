@@ -12,6 +12,9 @@ costs ~13 us on the host even with none.
 `sync(timing, site)` is the span `sync.<site>` around one call that blocks
 the host on the device: the number of `sync.*` events counts the program's
 marked blocking points, and their sum is the time the host waited there.
+
+`count(timing, name, n)` records a count the program already has on the
+host (no span, no sync) as one event of `timing[name]`.
 """
 from __future__ import annotations
 
@@ -88,3 +91,10 @@ class span:
 def sync(timing, site: str, frame=None) -> span:
     """The span `sync.<site>` around one call that blocks on the device."""
     return span(timing, "sync." + site, frame)
+
+
+def count(timing, name: str, n) -> None:
+    """Append the count n as one event of `timing[name]`; nothing without a
+    Timing."""
+    if timing is not None:
+        timing.add(name, float(n))

@@ -69,10 +69,30 @@ def test_flat_equals_reference(path):
     assert not bad
 
 
+def _calib_fields(calib, ref):
+    """The port's calib fields against the reference's; a KB8 pair's
+    `th_depth` is checked against upstream's formula and left out."""
+    got, want = dict(_fields(calib)), dict(_fields(ref))
+    if not got["params2"]:
+        return got, want, None
+    assert want.pop("th_depth") == 1e9
+    return got, want, got.pop("th_depth")
+
+
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_built_configs_equal_reference(path):
     js, ts = JSettings(path), Settings(path)
-    assert _same(_fields(ts.calib()), _fields(js.calib()))
+    got, want, th = _calib_fields(ts.calib(), js.calib())
+    assert _same(got, want)
+    if th is not None:
+        thd = float(ts.get("ThDepth", "Camera.ThDepth", "Stereo.ThDepth"))
+        c = ts.calib()
+        assert th == c.bf * thd / c.params[0]
+        # ThDepth baselines: TUM-VI's 40 x 0.101 m = 4.04 m
+        T12 = np.asarray(ts.get("Stereo.T_c1_c2.data", "Stereo.T_c1_c2"),
+                         np.float64).reshape(-1)
+        baseline = float(np.linalg.norm(T12[[3, 7, 11]]))
+        assert math.isclose(th, thd * baseline, rel_tol=1e-12)
     assert _same(_fields(ts.orb()), _fields(js.orb()))
     assert _same(_fields(ts.orb(n_feat_cap=1000)),
                  _fields(js.orb(n_feat_cap=1000)))
@@ -84,7 +104,9 @@ def test_built_configs_equal_reference(path):
     assert set(jf) == set(tf)
     for name in tf:
         a, b = tf[name], jf[name]
-        if name in ("calib", "orb", "map"):
+        if name == "calib":
+            a, b, _ = _calib_fields(a, b)
+        elif name in ("orb", "map"):
             a, b = _fields(a), _fields(b)
         assert _same(a, b), (name, a, b)
     if "Inertial" in path or "4season" in path:

@@ -201,8 +201,8 @@ def test_pvb_wrapper_takes_plain_version_on_cpu():
     assert (inertial_opt.pvb_plain_calls,
             inertial_opt.pvb_kernel_launches) == (before[0] + 1, before[1])
     ref = inertial_opt.pose_vel_bias_optimize_plain(*args, **kw)
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
+    for a, b in zip(out, ref):      # inlier_r / n_right: None, no rig
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def _refused(args, name):
@@ -237,4 +237,6 @@ def test_pvb_launch_args_refuse_what_the_kernel_cannot_take(name):
     args, kw, _ = scenario(torch.device("cpu"), N=50)
     call, out = inertial_opt._launch_args(*args[:11], LT, *args[11:],
                                           kw["walk_info"], 4, 6, kw["g"])
-    assert len(call) == 5 + 33 and out.inlier.shape == (50,)
+    # 5 scalars, 32 pointers, the rig's 5 (null here) and the stream
+    assert len(call) == 5 + 38 and out.inlier.shape == (50,)
+    assert call[-6:-1] == (None,) * 5 and out.n_right is None

@@ -5,14 +5,15 @@ half size 6 m, two Kannala-Brandt8 cameras of fx 150 px with the test's
 distortion, 240x320, a pure 0.4 m x-baseline rig, lapping over the whole
 width, 512 features, 4 levels, make_trajectory(25, "arc")), through
 `track_stereo` of both Systems: the unrectified pair goes through
-`process_stereo_fisheye` and every residual downstream is a monocular one
-(u_right = -1).
+`process_stereo_fisheye` and no residual downstream is a stereo (3-row)
+one (u_right = -1); the port adds its right keypoints as 2-row residuals
+through the second lens.
 
 Bars: both end OK with at least 2 keyframes and every frame recorded; the
 ATE of each under 3% of the path (test_fisheye.py's bar); keyframe counts
-within one of each other, and map points per keyframe within 10% (measured
-on the CPU: 7 and 8 keyframes, 562 and 644 points, 80.3 and 80.5 a
-keyframe).
+within one of each other; the port's path length within 5% of the truth's
+(the port observes each right keypoint through the second lens, which the
+reference does not, so their maps' sizes no longer agree).
 
 The whole-System fixture has this file to itself, so that `--dist loadfile`
 gives it a worker of its own.
@@ -92,11 +93,19 @@ def test_ate_under_three_percent(runs, name):
 
 
 def test_map_size_agrees(runs):
+    """Keyframe counts within one of the reference's. The points per
+    keyframe are no longer compared: the port's solvers observe each right
+    keypoint through the second lens and keep the map's scale, which the
+    reference leaves free, so its map keeps more points (94.2 against 80.3
+    a keyframe, measured on the CPU). In their place a port-only bar: the
+    tracked path's length within 5% of the truth's."""
     ref, port = runs["ref"], runs["port"]
     assert abs(port.keyframes_in_map() - ref.keyframes_in_map()) <= 1
-    per_kf = [s.map_points_in_map() / s.keyframes_in_map()
-              for s in (ref, port)]
-    assert abs(per_kf[1] - per_kf[0]) <= 0.1 * per_kf[0], per_kf
+    gt = np.stack([T[:3, 3] for T in runs["poses"]])
+    est = np.stack([T[:3, 3] for _, T in runs["rows_port"]])
+    lengths = [np.linalg.norm(np.diff(p, axis=0), axis=1).sum()
+               for p in (est, gt)]
+    assert abs(lengths[0] / lengths[1] - 1.0) < 0.05, lengths
 
 
 def test_fisheye_map_has_no_stereo_rows(runs):
