@@ -33,7 +33,12 @@ Phases (any failure exits non-zero; there is no CPU path):
      same kernel with an unrectified KB8 pair's right rows (TUM-VI's rig,
      the walk cell's 1,024 matches; tests/test_torch_rig_inertial.py's
      scenario) against its plain version and the plain two-camera model
-     of bench_port/reference/rig.py, and its time the same way;
+     of bench_port/reference/rig.py, and its time the same way; then the
+     pose_opt kernel (pose_opt.pose_optimize on the card) at the drive's
+     2,048 matches (the local map's 4 x 10, the motion stage's 2 x 5) and
+     the walk's 1,024 with their right keypoints, against its plain version
+     within tests/test_torch_pose_opt_kernel.py's tolerances, and its time
+     the same way;
   4. main path: System.track_stereo on 100 rendered KITTI-size stereo frames
      (384x1248, 2048 ORB features, 8 levels) with the sliding-window
      sparsifier live at bench.py's parameters (N=100, lambda=500,
@@ -120,13 +125,15 @@ Phases (any failure exits non-zero; there is no CPU path):
      card against the CPU under the switch (phase_tpu_numerics); run after
      phase 18 in its process;
   then a JSON line of per-kernel results (the f32 and the bf16 entry point,
-  and the pose_vel_bias kernel) and the final JSON status line.
+  the pose_vel_bias and the pose_opt kernel) and the final JSON status line.
 Every phase from 4 on checks the kernel's launches in its run: one a frame
 (none in phase 14, which renders no frame; in phase 19 one bf16 launch a
 frame and no f32 launch). The phases that track with an IMU (8, 12, 13 and
 16) also set the pose_vel_bias kernel's count to 0 before their run and
 check one launch an inertial step after it; phase 8 then holds the kernel
-against the plain version on its last inertial frame's inputs.
+against the plain version on its last inertial frame's inputs. Phase 4 also
+checks one pose_opt launch for each `pose_opt.kernel` event, one of those
+for each `pose_opt` event, and two of those at least a tracked frame.
 
 Options, for work on one part: --kernel-only stops after phase 3,
 --loop-only runs phases 1-3, 7 and 14, --imu-only phases 1-3 and 8,
@@ -190,7 +197,7 @@ def phase_device():
 
 def phase_build():
     from ms_slam_tpu_torch.ops import _native
-    for name in ("patch_gather", "pose_vel_bias"):
+    for name in ("patch_gather", "pose_vel_bias", "pose_opt"):
         t0 = time.perf_counter()
         _native.build(name)
         _native.load(name)
@@ -578,6 +585,103 @@ def phase_pvb_kernel_rig():
             "ms_wrapper_call": wrapper_ms, "n_right": int(out.n_right)}
 
 
+# pose_optimize's shapes on the main paths: the drive's 2,048 matches at
+# the local map's 4 x 10 and the motion stage's 2 x 5, and the walk's 1,024
+# with their right keypoints at 4 x 10
+POSE_OPT_SHAPES = (("drive 4x10", dict(N=2048), (4, 10)),
+                   ("drive 2x5", dict(N=2048), (2, 5)),
+                   ("walk 4x10", dict(N=1024, model=1, rig=True), (4, 10)))
+
+
+def phase_pose_opt_kernel():
+    """pose_optimize's kernel at the drive's and the walk's shapes: one
+    launch through the wrapper against the plain version
+    (tests/test_torch_pose_opt_kernel.py's scenes and tolerances; the walk's
+    right rows' flags against the plain version's gate), then its own time
+    through its C entry point (arguments built once, so a run of launches
+    keeps the card busy) with the L2 cache warm and cold, beside the
+    wrapper's call and the plain version's (each between CUDA events)."""
+    import importlib.util
+    from ms_slam_tpu_torch.ops import pose_opt
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_pose_opt_kernel.py")
+    threads = torch.get_num_threads()
+    spec = importlib.util.spec_from_file_location("pose_opt_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    torch.set_num_threads(threads)      # the test file pins one thread
+    fn = pose_opt.load_kernel().msslam_pose_opt
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    rows = []
+    for label, scene, (nr, ni) in POSE_OPT_SHAPES:
+        args, kw, _ = cases.scenario(torch.device("cuda"), **scene)
+        before = pose_opt.pose_opt_kernel_launches
+        out = pose_opt.pose_optimize(*args, n_rounds=nr, n_iters=ni, **kw)
+        torch.cuda.synchronize()
+        _check(pose_opt.pose_opt_kernel_launches == before + 1,
+               f"pose_opt {label}: not one launch")
+        ref = pose_opt.pose_optimize_plain(*args, n_rounds=nr, n_iters=ni,
+                                           **kw)
+        cases._assert_close(out, ref)
+        err = {"rot_rad": cases._rot_err(out.R.cpu(), ref.R.cpu()),
+               "t": float((out.t - ref.t).abs().max()),
+               "chi2_rel": abs(float(out.chi2) / float(ref.chi2) - 1),
+               "inliers_differ": int((out.inlier != ref.inlier).sum())}
+        call, c_out, inlier_r = pose_opt._launch_args(*args, nr, ni, **kw)
+
+        def launch(call=call):
+            rc = fn(*call)
+            _check(rc == 0, f"pose_opt launch failed: CUDA error {rc}")
+        launch.tensors = (args, kw, c_out, inlier_r)    # keep them alive
+        launch()
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(c_out, out)
+                   if a is not None),
+               f"pose_opt {label}: two launches on the same inputs differ")
+        if inlier_r is not None:
+            want = cases.right_flags(ref.R, ref.t, args, kw)
+            err["right_differ"] = int((inlier_r.cpu().numpy() != want).sum())
+            _check(err["right_differ"] <= 2,
+                   f"pose_opt {label}: right rows' flags differ: {err}")
+        ms = _run_ms(launch)
+        ms_cold = _cold_ms(launch, flush)
+        wrapper_ms = _cuda_ms(lambda: pose_opt.pose_optimize(
+            *args, n_rounds=nr, n_iters=ni, **kw), n=50)
+        plain_ms = _run_ms(lambda: pose_opt.pose_optimize_plain(
+            *args, n_rounds=nr, n_iters=ni, **kw), n=5, warmup=2, reps=3)
+        # the inputs read once (28 bytes a match's floats, 1 its mask, 12
+        # its right keypoint), the outputs written once
+        N = scene["N"]
+        n_bytes = 4 * (8 + 9 + 3 + 7 * N) + N + 4 * 13 + N + 4
+        if inlier_r is not None:
+            n_bytes += 4 * (8 + 12 + 3 * N) + N + 4
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"# pose_opt {label}, {N} matches ({_card()}): against the "
+              f"plain version rotation {err['rot_rad']:.2e} rad, t "
+              f"{err['t']:.2e}, chi2 {err['chi2_rel']:.2e} relative, inlier "
+              f"slots differing {err['inliers_differ']}"
+              + (f", right rows' flags from the gate {err['right_differ']}"
+                 if inlier_r is not None else "")
+              + f"; inliers {int(out.n_inliers)} / {int(ref.n_inliers)}")
+        print(f"#   kernel alone, 200 launches between two events (L2 warm), "
+              f"median of 5 runs: {ms:.4f} ms; L2 cold, median of 50 event "
+              f"pairs: {ms_cold:.4f} ms; bytes {n_bytes} "
+              f"({bound_ms * 1e3:.3f} us at 3.35 TB/s: bound by its "
+              f"{nr * ni} dependent iterations, not bytes); the wrapper's "
+              f"call, median of 50 event pairs: {wrapper_ms:.4f} ms; plain "
+              f"version, 5 calls between two events: {plain_ms:.4f} ms a "
+              f"call")
+        rows.append({"shape": label, "err": err, "ms": ms, "ms_cold": ms_cold,
+                     "ms_wrapper_call": wrapper_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bytes": n_bytes})
+    return {**{k: rows[0][k] for k in ("ms", "ms_cold", "ms_wrapper_call",
+                                        "plain_ms", "bound_ms")},
+            "bound_by": "latency (40 dependent iterations)",
+            "max_abs_err": max(max(r["err"]["rot_rad"], r["err"]["t"])
+                               for r in rows),
+            "other_shapes": rows[1:]}
+
+
 def _library_ms(canvas, bi, ys, xs, ref, name):
     """Time of the nearest single PyTorch call: the plain version's last
     step alone, `canvas.reshape(-1)[idx]` on an (n, 2025) int64 index built
@@ -840,7 +944,7 @@ def _ab_arm(slam, ok_frames):
 
 
 def phase_main_path():
-    from ms_slam_tpu_torch.ops import orb
+    from ms_slam_tpu_torch.ops import orb, pose_opt
     from ms_slam_tpu_torch.pipeline import sparsification
     from ms_slam_tpu_torch.pipeline import system as system_mod
     from ms_slam_tpu_torch.pipeline.system import System
@@ -869,6 +973,7 @@ def phase_main_path():
     slam = System(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     orb.patch_gather_launches = 0
+    pose_opt.pose_opt_kernel_launches = 0
     frame_s = []
     for i in range(N_FRAMES):
         t0 = time.perf_counter()
@@ -880,6 +985,9 @@ def phase_main_path():
     slam.shutdown()
     torch.cuda.synchronize()
     launches = orb.patch_gather_launches
+    po_launches = pose_opt.pose_opt_kernel_launches
+    po_spans = [len(slam.timing.get(k, []))
+                for k in ("pose_opt", "pose_opt.kernel")]
 
     steady = np.asarray(frame_s[10:])
     print(f"# main path: {N_FRAMES} frames; frames/s over frames 10-99: "
@@ -913,6 +1021,12 @@ def phase_main_path():
     _check(np.isfinite(est).all() and ate < 0.02 * path, "ATE above 2%")
     _check(launches >= N_FRAMES,
            f"patch_gather launched {launches} times for {N_FRAMES} frames")
+    # every tracked frame solves its motion stage and its local map, each
+    # call one launch inside its span
+    print(f"# pose_opt kernel launches {po_launches}; pose_opt and "
+          f"pose_opt.kernel events {po_spans}")
+    _check(po_launches >= po_spans[0] == po_spans[1] >= 2 * (N_FRAMES - 1),
+           f"pose_opt launched {po_launches} times, events {po_spans}")
 
     st = slam._sparsifier.stats
     mem = slam.memory_stats()
@@ -937,7 +1051,8 @@ def phase_main_path():
                        "kept": st["kept"], "killed": st["killed"],
                        "reduction": mem["reduction"],
                        "frontend_ms": _p50_ms(stage, "frontend")}}
-    return {"launches": launches, "slam": slam, "world": world, "K": K,
+    return {"launches": launches, "pose_opt_launches": po_launches,
+            "slam": slam, "world": world, "K": K,
             "poses": poses, "window": windows_seen[0],
             "ab_on": _ab_arm(slam, ok_frames), "p4": p4}
 
@@ -3575,11 +3690,14 @@ def _run(args):
     if args.sync_census:
         phase_sync_census(args.sync_census)
         return 0
+    from ms_slam_tpu_torch.ops import pose_opt
     kern = phase_kernel(args.parent)
     pvb = phase_pvb_kernel()
     pvb["rig"] = phase_pvb_kernel_rig()
+    po = phase_pose_opt_kernel()
     # pose_vel_bias launches, each phase's count set to 0 before its run
     by_phase, bf16_by_phase, pvb_by_phase = {}, {}, {}
+    pose_opt_by_phase = {}
     only = [k for k in ("kernel_only", "loop_only", "imu_only",
                         "sensors_only", "cli_only", "atlas_only",
                         "imu_loop_only", "memory_only", "pipeline_only",
@@ -3591,6 +3709,7 @@ def _run(args):
     if not part:
         run = phase_main_path()
         by_phase["main_path"] = run["launches"]
+        pose_opt_by_phase["main_path"] = run["pose_opt_launches"]
         by_phase["relocalization"] = phase_relocalize(run)
         phase_ties_and_selector(run["window"])
         ab_on, p4 = run["ab_on"], run["p4"]
@@ -3673,7 +3792,12 @@ def _run(args):
         "source": "ms_slam_tpu_torch/csrc/pose_vel_bias.cu",
         "replaces": None,
         "launches": sum(pvb_by_phase.values()) if pvb_by_phase else None,
-        "launches_by_phase": pvb_by_phase, **pvb}]}))
+        "launches_by_phase": pvb_by_phase, **pvb}, {
+        "name": "pose_opt", "route": "cuda",
+        "source": "ms_slam_tpu_torch/csrc/pose_opt.cu",
+        "replaces": None,
+        "launches_this_process": pose_opt.pose_opt_kernel_launches,
+        "launches_by_phase": pose_opt_by_phase, **po}]}))
     if part:
         return 0
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,17 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface; it is compiled with
 `nvcc` for Hopper (`sm_90a`) into `ms_slam_tpu_torch/_build/lib<name>.so`
-at first use and loaded with ctypes. `-Xptxas -v` is on, and what the
-compiler said (registers, shared memory, spills per kernel) is kept in
-`build_log`. Nothing here runs at import: the CPU tests import every module
-on a machine without `nvcc`.
+at first use and loaded with ctypes; it is built again when it or a header
+of `csrc/` that it includes is newer than the library. `-Xptxas -v` is on,
+and what the compiler said (registers, shared memory, spills per kernel) is
+kept in `build_log`. Nothing here runs at import: the CPU tests import
+every module on a machine without `nvcc`.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,13 +39,34 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def sources(name: str) -> list[str]:
+    """csrc/<name>.cu and the headers of csrc/ it includes with `#include
+    "..."`, and theirs, each once."""
+    out = [os.path.join(_CSRC, f"{name}.cu")]
+    for path in out:
+        with open(path) as f:
+            for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(),
+                                  re.M):
+                head = os.path.join(_CSRC, inc)
+                if head not in out:
+                    out.append(head)
+    return out
+
+
+def stale(lib: str, srcs: list[str]) -> bool:
+    """True when lib is missing or older than any of srcs."""
+    return not os.path.exists(lib) or os.path.getmtime(lib) < max(
+        os.path.getmtime(s) for s in srcs)
+
+
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless an up-to-date library exists; returns
-    the library path. The library is written under a temporary name and
-    renamed, so a concurrent loader never sees a partial file."""
+    """Compile csrc/<name>.cu unless an up-to-date library exists (newer
+    than the source and every header it includes); returns the library
+    path. The library is written under a temporary name and renamed, so a
+    concurrent loader never sees a partial file."""
     src = os.path.join(_CSRC, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    if not stale(lib, sources(name)):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

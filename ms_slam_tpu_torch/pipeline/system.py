@@ -80,7 +80,7 @@ import torch
 from ..models import map_state as M
 from ..models.vocab import KeyFrameDatabase, place_scores
 from ..ops import imu as imu_ops
-from ..ops import inertial_opt, matching, twoview
+from ..ops import inertial_opt, matching, pose_opt, twoview
 from ..ops.lie import rot_to_quat
 from ..ops.orb import OrbConfig
 from ..utils import viewer
@@ -309,8 +309,10 @@ class System:
             torch.as_tensor(self.Tbc[:3, 3], dtype=torch.float32,
                             device=self.device))
         self.imu_frames = 0      # frames tracked through track_full_imu
-        if cfg.use_imu and self.device.type == "cuda":
-            inertial_opt.load_kernel()   # nvcc, if it runs, runs in set-up
+        if self.device.type == "cuda":   # nvcc, if it runs, runs in set-up
+            pose_opt.load_kernel()
+            if cfg.use_imu:
+                inertial_opt.load_kernel()
         # Atlas labels (host): the map id of each keyframe slot; a fresh map
         # starts after irrecoverable loss (ref Tracking::CreateMapInAtlas)
         self.active_map = 0

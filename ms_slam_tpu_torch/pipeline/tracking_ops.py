@@ -19,8 +19,9 @@ Given a `Timing` (`timing=`), the step records its stages as spans
 `sync.track_fallback`), `track.local_select`, `track.local`, `track.stats`,
 and in the inertial step `imu.predict` and `pvb_opt`; inside them `search`
 around each `search_by_projection`, `pose_opt` around each
-`pose_optimize` and, on the card, `pvb_opt.kernel` around the launch of
-`pose_vel_bias_optimize`'s kernel.
+`pose_optimize` and, on the card, `pose_opt.kernel` and `pvb_opt.kernel`
+around the launches of `pose_optimize`'s and `pose_vel_bias_optimize`'s
+kernels.
 
 For an unrectified stereo pair (`calib.rig`) every solver also takes each
 match's right keypoint (`FrameData.right`) as a right-camera row, and the
@@ -88,7 +89,7 @@ def track_points(ms: M.MapState, calib: Calib, orb_cfg: OrbConfig,
         res = pose_opt.pose_optimize(
             calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
             frame.sigma2, has, n_rounds=opt_rounds, n_iters=opt_iters,
-            **_rig_kwargs(calib, frame, R0.device))
+            timing=timing, **_rig_kwargs(calib, frame, R0.device))
     matched = torch.where(res.inlier, mp_of_feat, -1)
     return TrackOut(R=res.R, t=res.t, matched_mp=matched,
                     n_matched=pm.n_matches, n_inliers=res.n_inliers,
@@ -113,7 +114,8 @@ def track_by_appearance(ms: M.MapState, calib: Calib, frame: FrameData,
     with span(timing, "pose_opt"):
         res = pose_opt.pose_optimize(
             calib.model, params, calib.bf, R0, t0, X, f.xy, frame.u_right,
-            frame.sigma2, has, **_rig_kwargs(calib, frame, R0.device))
+            frame.sigma2, has, timing=timing,
+            **_rig_kwargs(calib, frame, R0.device))
     matched = torch.where(res.inlier, mp, -1).to(torch.int32)
     return TrackOut(R=res.R, t=res.t, matched_mp=matched,
                     n_matched=mm.n_matches, n_inliers=res.n_inliers,
