@@ -175,6 +175,23 @@ BASELINE = 0.537
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 
 
+# the kernels' entry points, whose launches `_native.calls` counts
+PG, PG_BF16 = "msslam_patch_gather_f32", "msslam_patch_gather_bf16"
+PVB, POSE_OPT = "msslam_pose_vel_bias", "msslam_pose_opt"
+
+
+def _calls(key: str) -> int:
+    """Launches of an entry point (or plain calls of a wrapper) so far."""
+    from ms_slam_tpu_torch.ops import _native
+    return _native.calls[key]
+
+
+def _reset(*keys: str):
+    from ms_slam_tpu_torch.ops import _native
+    for key in keys:
+        _native.calls[key] = 0
+
+
 def _check(cond: bool, msg: str):
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -284,17 +301,17 @@ def _kernel_inputs(B=2, Hc=H, Wc=5888, n=2048):
     return canvas, bi, ys, xs
 
 
-def _c_launch(c_fn, canvas, bi, ys, xs, out):
-    """A closure that calls a kernel's C entry point directly: no checks,
-    no allocation, so a run of calls keeps the device busy."""
-    import ctypes
-    c_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    c_fn.restype = ctypes.c_int
+def _c_launch(canvas, bi, ys, xs, out, c_fn=None):
+    """A closure that calls the gather's C entry point for the canvas's
+    dtype directly, its arguments checked and built once: no allocation,
+    so a run of calls keeps the device busy. c_fn: another checkout's
+    entry point of the same C interface in place of this one's."""
+    from ms_slam_tpu_torch.ops import orb
+    entry = orb._GATHER[canvas.dtype]
+    c_fn = entry.fn() if c_fn is None else entry.bind(c_fn)
     B, Hc, Wc = canvas.shape
-    args = (canvas.data_ptr(), bi.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-            out.data_ptr(), bi.shape[0], B, Hc, Wc,
-            torch.cuda.current_stream().cuda_stream)
+    args = entry.args(canvas.device, canvas=canvas, bi=bi, ys=ys, xs=xs,
+                      out=out, n=bi.shape[0], B=B, H=Hc, Wc=Wc)
 
     def launch():
         rc = c_fn(*args)
@@ -325,7 +342,7 @@ def phase_kernel(parent_dir=None):
     version through the wrapper, then the kernel's own time (its C entry
     point, output allocated once) with the L2 cache warm and cold, beside
     its bound, the plain version and the nearest single PyTorch call."""
-    from ms_slam_tpu_torch.ops import orb
+    from ms_slam_tpu_torch.ops import _native, orb
     _, Wc, _ = orb.canvas_layout(H, W, orb.OrbConfig(n_features=2048,
                                                      n_levels=8))
     _check(Wc == 5888, f"canvas width {Wc} != 5888")
@@ -350,10 +367,9 @@ def phase_kernel(parent_dir=None):
                    + xs.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
 
-    lib = orb._patch_gather_lib()
     buf = torch.empty_like(out)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    this = _c_launch(lib.msslam_patch_gather_f32, canvas, bi, ys, xs, buf)
+    this = _c_launch(canvas, bi, ys, xs, buf)
     this()
     torch.cuda.synchronize()
     _check(torch.equal(buf, ref), "kernel != plain through its C entry")
@@ -361,7 +377,7 @@ def phase_kernel(parent_dir=None):
     if parent_dir is not None:
         parent_f32, parent_bf16 = _build_parent(parent_dir)
         buf_p = torch.empty_like(out)
-        parent = _c_launch(parent_f32, canvas, bi, ys, xs, buf_p)
+        parent = _c_launch(canvas, bi, ys, xs, buf_p, parent_f32)
         parent()
         torch.cuda.synchronize()
         _check(torch.equal(buf_p, ref), "the parent's kernel != plain")
@@ -383,8 +399,8 @@ def phase_kernel(parent_dir=None):
     # kernels (yardsticks only), and the kernel's floor: one group, one block
     fill_ms = _run_ms(lambda: buf.fill_(1.0))
     copy_ms = _run_ms(lambda: buf.copy_(out))
-    one = _c_launch(lib.msslam_patch_gather_f32, canvas, bi[:4].clone(),
-                    ys[:4].clone(), xs[:4].clone(), buf)
+    one = _c_launch(canvas, bi[:4].clone(), ys[:4].clone(), xs[:4].clone(),
+                    buf)
     one_ms = _run_ms(one)
     print(f"#   same method: Tensor.fill_ of the {out.numel() * 4} B output "
           f"{fill_ms:.4f} ms; Tensor.copy_ into it from a tensor of its size "
@@ -394,13 +410,14 @@ def phase_kernel(parent_dir=None):
           f"(host gap inside the span), median of 50: {wrapper_ms:.4f} ms; "
           f"plain version {plain_ms:.4f} ms; nearest library call "
           f"(canvas.reshape(-1)[idx], index prebuilt) {library_ms:.4f} ms")
-    shapes = [_kernel_at_shape(lib, name, *shape)
+    shapes = [_kernel_at_shape(name, *shape)
               for name, shape in SENSOR_KERNEL_SHAPES]
-    resident = lib.msslam_patch_gather_bf16_resident_blocks()
+    resident = _native.load(
+        "patch_gather").msslam_patch_gather_bf16_resident_blocks()
     _check(resident > 0, f"patch_gather_bf16: resident blocks {resident}")
     print(f"# patch_gather_bf16: {resident} resident blocks on the card (its "
           "grid at most)")
-    bf16 = [_kernel_at_shape(lib, name, *shape, dtype=torch.bfloat16,
+    bf16 = [_kernel_at_shape(name, *shape, dtype=torch.bfloat16,
                              parent=parent_bf16 if name in BF16_IN_TURNS
                              else None)
             for name, shape in BF16_KERNEL_SHAPES]
@@ -463,14 +480,15 @@ def phase_pvb_kernel():
               for k in ("p_wb", "v", "bg", "ba")},
            "inliers_differ": int((out.inlier != ref.inlier).sum())}
     LT = imu.sqrt_information(args[10]).transpose(-1, -2).contiguous()
-    c_args, c_out = inertial_opt._launch_args(
+    call, c_out = inertial_opt._kernel_call(
         *args[:11], LT, *args[11:], kw["walk_info"], 4, 6, kw["g"])
-    fn = inertial_opt.load_kernel().msslam_pose_vel_bias
+    c_args = inertial_opt.KERNEL.args(args[11].device, **call)
+    fn = inertial_opt.KERNEL.fn()
 
     def launch():
         rc = fn(*c_args)
         _check(rc == 0, f"pose_vel_bias launch failed: CUDA error {rc}")
-    launch.tensors = (args, kw, LT, c_out)      # keep the pointers alive
+    launch.tensors = (args, kw, LT, call)       # keep the pointers alive
     launch()
     torch.cuda.synchronize()
     _check(all(torch.equal(a, b) for a, b in zip(c_out, out)
@@ -487,8 +505,9 @@ def phase_pvb_kernel():
     # the inputs read once: 28 bytes a match's floats and 1 its mask, the
     # state, the preintegration and L^T; the outputs written once
     n_bytes = 4 * sum(t.numel() for t in (*args[1:2], *args[3:10],
-                                          *[getattr(args[10], k) for k, _
-                                            in inertial_opt._PREINT_SHAPES],
+                                          *[getattr(args[10], k) for k
+                                            in imu.PreintState._fields
+                                            if k != "C"],
                                           LT, *args[11:18], kw["walk_info"],
                                           kw["g"])) \
         + 2 * PVB_N + 4 * 22
@@ -532,10 +551,10 @@ def phase_pvb_kernel_rig():
     import test_torch_rig_inertial as cases
     torch.set_num_threads(threads)      # the test files pin one thread
     args, kw, _ = cases.rig_scenario(torch.device("cuda"), N=PVB_RIG_N)
-    before = inertial_opt.pvb_kernel_launches
+    before = _calls(PVB)
     out = inertial_opt.pose_vel_bias_optimize(*args, **kw)
     torch.cuda.synchronize()
-    _check(inertial_opt.pvb_kernel_launches == before + 1,
+    _check(_calls(PVB) == before + 1,
            "pose_vel_bias with right rows: not one launch")
     ref = inertial_opt.pose_vel_bias_optimize_plain(*args, **kw)
     cases._assert_close(out, ref)
@@ -549,15 +568,16 @@ def phase_pvb_kernel_rig():
     _check(err["right_differ"] <= 2 and err["right_differ_reference"] <= 2,
            f"pose_vel_bias right rows differ: {err}")
     LT = imu.sqrt_information(args[10]).transpose(-1, -2).contiguous()
-    c_args, c_out = inertial_opt._launch_args(
+    call, c_out = inertial_opt._kernel_call(
         *args[:11], LT, *args[11:], kw["walk_info"], 4, 6, kw["g"],
         kw["rig"], kw["right"])
-    fn = inertial_opt.load_kernel().msslam_pose_vel_bias
+    c_args = inertial_opt.KERNEL.args(args[11].device, **call)
+    fn = inertial_opt.KERNEL.fn()
 
     def launch():
         rc = fn(*c_args)
         _check(rc == 0, f"pose_vel_bias launch failed: CUDA error {rc}")
-    launch.tensors = (args, kw, LT, c_out)      # keep the pointers alive
+    launch.tensors = (args, kw, LT, call)       # keep the pointers alive
     launch()
     torch.cuda.synchronize()
     _check(all(torch.equal(a, b) for a, b in zip(c_out, out)),
@@ -610,15 +630,15 @@ def phase_pose_opt_kernel():
     cases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cases)
     torch.set_num_threads(threads)      # the test file pins one thread
-    fn = pose_opt.load_kernel().msslam_pose_opt
+    fn = pose_opt.KERNEL.fn()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = []
     for label, scene, (nr, ni) in POSE_OPT_SHAPES:
         args, kw, _ = cases.scenario(torch.device("cuda"), **scene)
-        before = pose_opt.pose_opt_kernel_launches
+        before = _calls(POSE_OPT)
         out = pose_opt.pose_optimize(*args, n_rounds=nr, n_iters=ni, **kw)
         torch.cuda.synchronize()
-        _check(pose_opt.pose_opt_kernel_launches == before + 1,
+        _check(_calls(POSE_OPT) == before + 1,
                f"pose_opt {label}: not one launch")
         ref = pose_opt.pose_optimize_plain(*args, n_rounds=nr, n_iters=ni,
                                            **kw)
@@ -627,12 +647,14 @@ def phase_pose_opt_kernel():
                "t": float((out.t - ref.t).abs().max()),
                "chi2_rel": abs(float(out.chi2) / float(ref.chi2) - 1),
                "inliers_differ": int((out.inlier != ref.inlier).sum())}
-        call, c_out, inlier_r = pose_opt._launch_args(*args, nr, ni, **kw)
+        call, c_out = pose_opt._kernel_call(*args, nr, ni, **kw)
+        inlier_r = call["inlier_r"]
+        c_args = pose_opt.KERNEL.args(args[3].device, **call)
 
-        def launch(call=call):
-            rc = fn(*call)
+        def launch(c_args=c_args):
+            rc = fn(*c_args)
             _check(rc == 0, f"pose_opt launch failed: CUDA error {rc}")
-        launch.tensors = (args, kw, c_out, inlier_r)    # keep them alive
+        launch.tensors = (args, kw, call)       # keep the pointers alive
         launch()
         torch.cuda.synchronize()
         _check(all(torch.equal(a, b) for a, b in zip(c_out, out)
@@ -725,7 +747,7 @@ BF16_KERNEL_SHAPES = (("stereo", (2, 384, 5888, 2048)),
 BF16_IN_TURNS = ("stereo", "mono_rgbd")
 
 
-def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32,
+def _kernel_at_shape(name, B, Hc, Wc, n, dtype=torch.float32,
                      parent=None):
     """The kernel at another shape of the main paths (or its bf16 entry
     point on a bf16 canvas): bit for bit against the plain version (a bf16
@@ -737,12 +759,12 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32,
     canvas, bi, ys, xs = _kernel_inputs(B, Hc, Wc, n)
     canvas = canvas.to(dtype)
     bf16 = dtype == torch.bfloat16
-    counter = "patch_gather_bf16_launches" if bf16 else "patch_gather_launches"
-    before = getattr(orb, counter)
+    entry = PG_BF16 if bf16 else PG
+    before = _calls(entry)
     out = orb.extract_patches_canvas(canvas, bi, ys, xs)
     ref = orb.extract_patches_canvas_plain(canvas, bi, ys, xs).float()
     torch.cuda.synchronize()
-    _check(getattr(orb, counter) == before + 1, f"{name}: {counter}")
+    _check(_calls(entry) == before + 1, f"{name}: {entry} launches")
     n_all = bi.shape[0]
     _check(out.shape == ref.shape == (n_all, 45, 45), f"{name}: patch shape")
     err = float((out - ref).abs().max())
@@ -752,9 +774,7 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32,
                + canvas.element_size() * canvas.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     buf = torch.empty_like(out)
-    entry = (lib.msslam_patch_gather_bf16 if bf16
-             else lib.msslam_patch_gather_f32)
-    fn = _c_launch(entry, canvas, bi, ys, xs, buf)
+    fn = _c_launch(canvas, bi, ys, xs, buf)
     fn()
     torch.cuda.synchronize()
     _check(torch.equal(buf, ref), f"{name}: kernel != plain, C entry")
@@ -762,7 +782,7 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32,
     turns = None
     if parent is not None:
         buf_p = torch.empty_like(out)
-        fn_p = _c_launch(parent, canvas, bi, ys, xs, buf_p)
+        fn_p = _c_launch(canvas, bi, ys, xs, buf_p, parent)
         fn_p()
         torch.cuda.synchronize()
         _check(torch.equal(buf_p, ref), f"{name}: the parent's kernel != "
@@ -771,7 +791,7 @@ def _kernel_at_shape(lib, name, B, Hc, Wc, n, dtype=torch.float32,
                           f"patch_gather{'_bf16' if bf16 else ''} {name}")
     ms, ms_cold = _run_ms(fn), _cold_ms(fn, flush)
     # the same method's floor: the entry point on one group of 4 keypoints
-    one_ms = _run_ms(_c_launch(entry, canvas, bi[:4].clone(), ys[:4].clone(),
+    one_ms = _run_ms(_c_launch(canvas, bi[:4].clone(), ys[:4].clone(),
                                xs[:4].clone(), buf))
     wrapper_ms = _cuda_ms(lambda: orb.extract_patches_canvas(
         canvas, bi, ys, xs))
@@ -944,7 +964,6 @@ def _ab_arm(slam, ok_frames):
 
 
 def phase_main_path():
-    from ms_slam_tpu_torch.ops import orb, pose_opt
     from ms_slam_tpu_torch.pipeline import sparsification
     from ms_slam_tpu_torch.pipeline import system as system_mod
     from ms_slam_tpu_torch.pipeline.system import System
@@ -972,8 +991,7 @@ def phase_main_path():
 
     slam = System(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    orb.patch_gather_launches = 0
-    pose_opt.pose_opt_kernel_launches = 0
+    _reset(PG, POSE_OPT)
     frame_s = []
     for i in range(N_FRAMES):
         t0 = time.perf_counter()
@@ -984,8 +1002,8 @@ def phase_main_path():
     windows_before = slam._sparsifier.stats["windows"]
     slam.shutdown()
     torch.cuda.synchronize()
-    launches = orb.patch_gather_launches
-    po_launches = pose_opt.pose_opt_kernel_launches
+    launches = _calls(PG)
+    po_launches = _calls(POSE_OPT)
     po_spans = [len(slam.timing.get(k, []))
                 for k in ("pose_opt", "pose_opt.kernel")]
 
@@ -1061,7 +1079,6 @@ def phase_relocalize(run):
     """Track a perturbed view of frame 60 from the LOST state."""
     from scipy.spatial.transform import Rotation
 
-    from ms_slam_tpu_torch.ops import orb
     slam, poses = run["slam"], run["poses"]
     T_q = poses[60].copy()
     T_q[:3, :3] = T_q[:3, :3] @ Rotation.from_euler(
@@ -1080,7 +1097,7 @@ def phase_relocalize(run):
                       None if out is None else int(out.n_inliers)))
         return out
     slam._relocalize = timed
-    orb.patch_gather_launches = 0
+    _reset(PG)
     # twice: the first call also pays the solvers' one-time set-up
     for rep in range(2):
         slam.state = "LOST"
@@ -1095,7 +1112,7 @@ def phase_relocalize(run):
               f"camera-centre error {err:.4f} m (bar 0.35 m)")
         _check(slam.state == "OK", f"relocalization ended {slam.state}")
         _check(err < 0.35, f"relocalization error {err:.3f} m")
-    launches = orb.patch_gather_launches
+    launches = _calls(PG)
     print("# _relocalize wall time (synchronised): "
           + ", ".join(f"{s * 1e3:.2f} ms ({n} inliers after refinement)"
                       for s, n in found)
@@ -1217,7 +1234,7 @@ def phase_loop_closing():
     then 335/98/351 and 263/55/257 on the 31/52/102 ladder), which is
     perceptual aliasing of the scene, not a revisit."""
     from ms_slam_tpu_torch.models.map_state import MapConfig
-    from ms_slam_tpu_torch.ops import orb, pose_graph, sim3
+    from ms_slam_tpu_torch.ops import pose_graph, sim3
     from ms_slam_tpu_torch.ops.orb import OrbConfig
     from ms_slam_tpu_torch.pipeline import loop_closing, mapping_ops
     from ms_slam_tpu_torch.pipeline.frontend import Calib
@@ -1310,7 +1327,7 @@ def phase_loop_closing():
     lc.flush = logged_flush
 
     torch.cuda.reset_peak_memory_stats()
-    orb.patch_gather_launches = 0
+    _reset(PG)
     frame_s = []
     for i in range(LOOP_FRAMES):
         t0 = time.perf_counter()
@@ -1319,7 +1336,7 @@ def phase_loop_closing():
         frame_s.append(time.perf_counter() - t0)
     slam.shutdown()
     torch.cuda.synchronize()
-    launches = orb.patch_gather_launches
+    launches = _calls(PG)
 
     steady = np.asarray(frame_s[10:])
     print(f"# loop closing: {LOOP_FRAMES} frames (lap {LOOP_LAP} after a "
@@ -1460,14 +1477,14 @@ def phase_merge_and_dist_ba(slam):
 
     from scipy.spatial.transform import Rotation
 
-    from ms_slam_tpu_torch.ops import orb, pose_graph
+    from ms_slam_tpu_torch.ops import pose_graph
     from ms_slam_tpu_torch.parallel import dist_ba
     from ms_slam_tpu_torch.pipeline import mapping_ops
 
     t_phase = time.perf_counter()
     poses = _circuit(LOOP_FRAMES, LOOP_RADIUS, LOOP_LAP, LOOP_RAMP)
     lc = slam._loop_closer
-    orb.patch_gather_launches = 0
+    _reset(PG)
 
     # (a) the merge
     lap_end = LOOP_LAP + LOOP_RAMP // 2
@@ -1665,7 +1682,7 @@ def phase_merge_and_dist_ba(slam):
              f"dist_global_ba over {mesh.devices}"))
     _check((mesh is None) == (n_cards < DIST_SHARDS),
            "the branch does not follow the card count")
-    launches_pg = orb.patch_gather_launches
+    launches_pg = _calls(PG)
     _check(launches_pg == 0, f"patch_gather launched {launches_pg} times "
            "in a phase that renders no frame")
     print(f"# phase 14 took {time.perf_counter() - t_phase:.1f} s")
@@ -1712,7 +1729,7 @@ def phase_inertial():
     times its value before."""
     from ms_slam_tpu_torch.models.map_state import MapConfig
     from ms_slam_tpu_torch.ops import imu as imu_ops
-    from ms_slam_tpu_torch.ops import inertial_opt, orb
+    from ms_slam_tpu_torch.ops import inertial_opt
     from ms_slam_tpu_torch.ops.orb import OrbConfig
     from ms_slam_tpu_torch.pipeline import system as system_mod
     from ms_slam_tpu_torch.pipeline.frontend import Calib
@@ -1805,8 +1822,7 @@ def phase_inertial():
     system_mod.to.track_full_imu = timed_track_imu
 
     torch.cuda.reset_peak_memory_stats()
-    orb.patch_gather_launches = 0
-    inertial_opt.pvb_kernel_launches = 0
+    _reset(PG, PVB)
     frame_s, states, stages, peaks = [], [], [], []
     blank_from = None
     imu_expected = 0
@@ -1832,8 +1848,8 @@ def phase_inertial():
         peaks.append((torch.cuda.max_memory_allocated(), len(slam.kf_order)))
     slam._flush_pipeline()
     torch.cuda.synchronize()
-    launches = orb.patch_gather_launches
-    pvb_launches = inertial_opt.pvb_kernel_launches
+    launches = _calls(PG)
+    pvb_launches = _calls(PVB)
     imu_ops.integrate = integrate
     system_mod.to.track_full_imu = track_full_imu
     inertial_opt.pose_vel_bias_optimize = pvb
@@ -2030,9 +2046,8 @@ def _drive(slam, frames, step, stage_keys, stage, label):
     """Run `step(slam, i, frame)` over the frames with the kernel's count
     set to 0 just before and read just after (the pipeline flushed); print
     the rate, the frame wall times and the stages' p50."""
-    from ms_slam_tpu_torch.ops import orb
     torch.cuda.reset_peak_memory_stats()
-    orb.patch_gather_launches = 0
+    _reset(PG)
     frame_s = []
     for i, fr in enumerate(frames):
         t0 = time.perf_counter()
@@ -2041,7 +2056,7 @@ def _drive(slam, frames, step, stage_keys, stage, label):
         frame_s.append(time.perf_counter() - t0)
     slam._flush_pipeline()
     torch.cuda.synchronize()
-    launches = orb.patch_gather_launches
+    launches = _calls(PG)
     fs = np.asarray(frame_s)
     print(f"# {label}: {len(fs)} frames; frames/s over frames 5-"
           f"{len(fs) - 1}: {(len(fs) - 5) / fs[5:].sum():.3f}; frame wall "
@@ -2313,7 +2328,6 @@ def phase_mono_inertial():
     0.2 of 1 over the whole run and over its second half; the scale-free
     ATE under 12% of the path; one patch-gather launch a frame, and one
     pose_vel_bias launch an inertial step."""
-    from ms_slam_tpu_torch.ops import inertial_opt
     from ms_slam_tpu_torch.pipeline import system as system_mod
     from ms_slam_tpu_torch.pipeline.system import System
     from ms_slam_tpu_torch.utils import synth
@@ -2344,7 +2358,7 @@ def phase_mono_inertial():
             s.track_monocular_imu(fr[0], 0.1 * i, imu[i - 1])
         if s.imu_initialized and not init_at:
             init_at.append(i)
-    inertial_opt.pvb_kernel_launches = 0
+    _reset(PVB)
     with _time_stages(stage, [
             (system_mod, "process_mono", "frontend"),
             (system_mod.to, "track_full", "track"),
@@ -2353,7 +2367,7 @@ def phase_mono_inertial():
         launches = _drive(slam, frames, step,
                           ("frontend", "track", "track_full_imu",
                            "keyframe_step"), stage, "mono-inertial")
-    pvb_launches = inertial_opt.pvb_kernel_launches
+    pvb_launches = _calls(PVB)
     g = np.asarray(slam.gravity if slam.gravity is not None
                    else np.zeros(3), np.float64)
     rows = slam.poses_wc()
@@ -2447,7 +2461,6 @@ def phase_cli():
 
     from ms_slam_tpu_torch.examples import (evaluate_ate, gen_fake_euroc,
                                             stereo_inertial_euroc)
-    from ms_slam_tpu_torch.ops import inertial_opt, orb
     from ms_slam_tpu_torch.pipeline.system import System
     from ms_slam_tpu_torch.utils import checkpoint, native, viewer
     from ms_slam_tpu_torch.utils.config import Settings
@@ -2520,8 +2533,7 @@ def phase_cli():
     native.PrefetchPipeline = CountedPipe
     try:
         torch.cuda.reset_peak_memory_stats()
-        orb.patch_gather_launches = 0
-        inertial_opt.pvb_kernel_launches = 0
+        _reset(PG, PVB)
         t0 = time.perf_counter()
         if have["cv2"]:
             slam = stereo_inertial_euroc.main(
@@ -2549,8 +2561,8 @@ def phase_cli():
         stereo_inertial_euroc.System = driver_system
         stereo_inertial_euroc.run = driver_run
         native.PrefetchPipeline = real_pipe
-    launches = orb.patch_gather_launches
-    pvb_launches = inertial_opt.pvb_kernel_launches
+    launches = _calls(PG)
+    pvb_launches = _calls(PVB)
     peak = torch.cuda.max_memory_allocated() / 2**20
     fs = np.asarray(seen["times"])
     route = ("the native prefetch pipeline" if seen["pipes"]
@@ -2632,7 +2644,7 @@ def phase_cli():
     T_q[:3, 3] += T_q[:3, :3] @ np.array([0.3, 0.0, 0.0])
     (q_l, q_r), = gen_fake_euroc.render(world, K, [T_q], geo["baseline"], W_,
                                         H_)
-    orb.patch_gather_launches = 0
+    _reset(PG)
     t_next = CLI_FRAMES / CLI_FPS + 1.0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2657,7 +2669,7 @@ def phase_cli():
         after.append((i, slam2.state, float(np.linalg.norm(
             np.linalg.inv(slam2.current_pose())[:3, 3] - poses[i][:3, 3]))))
     torch.cuda.synchronize()
-    launches2 = orb.patch_gather_launches
+    launches2 = _calls(PG)
     print("# cli: after the relocalization (frame, state, camera-centre "
           f"error m): {[(i, s, round(e, 4)) for i, s, e in after]}; "
           f"keyframes made after the load {slam2.kf_ord - ord_loaded}; "
@@ -2748,7 +2760,6 @@ def _atlas_run(script, cfg, label, card):
     """Drive one System over `script` [(images, true pose, part)], one
     track_stereo call each, 0.1 s apart, with the weld BA, _merge_maps and
     detect_and_verify timed. Returns its outcomes."""
-    from ms_slam_tpu_torch.ops import orb
     from ms_slam_tpu_torch.pipeline import loop_closing
     from ms_slam_tpu_torch.pipeline.system import System
     slam = System(cfg, device="cuda")
@@ -2786,7 +2797,7 @@ def _atlas_run(script, cfg, label, card):
     lc._merge_maps = timed_merge
 
     torch.cuda.reset_peak_memory_stats()
-    orb.patch_gather_launches = 0
+    _reset(PG)
     for i, ((img_l, img_r), _, part) in enumerate(script):
         t0 = time.perf_counter()
         slam.track_stereo(img_l, img_r, 0.1 * i)
@@ -2795,7 +2806,7 @@ def _atlas_run(script, cfg, label, card):
         trace.append((part, slam.state, slam.active_map))
     slam._flush_pipeline()
     torch.cuda.synchronize()
-    launches = orb.patch_gather_launches
+    launches = _calls(PG)
     loop_closing.detect_and_verify = detect_and_verify
 
     fs = np.asarray(frame_s)
@@ -2967,7 +2978,7 @@ def phase_inertial_loop(circuit=None):
     when another process rendered them."""
     import dataclasses
 
-    from ms_slam_tpu_torch.ops import inertial_opt, orb, pose_graph
+    from ms_slam_tpu_torch.ops import pose_graph
     from ms_slam_tpu_torch.pipeline import loop_closing
     from ms_slam_tpu_torch.pipeline.system import System
     from ms_slam_tpu_torch.utils import evaluate, synth
@@ -3009,8 +3020,7 @@ def phase_inertial_loop(circuit=None):
     _timed(lc, "_correct_loop", "_correct_loop", stage)
     _timed(slam, "_full_inertial_ba", "_full_inertial_ba", stage)
     torch.cuda.reset_peak_memory_stats()
-    orb.patch_gather_launches = 0
-    inertial_opt.pvb_kernel_launches = 0
+    _reset(PG, PVB)
     frame_s, stages = [], []
     for i in range(LOOP_FRAMES):
         t0 = time.perf_counter()
@@ -3025,8 +3035,8 @@ def phase_inertial_loop(circuit=None):
                        lc.stats["loops"]))
     slam._flush_pipeline()
     torch.cuda.synchronize()
-    launches = orb.patch_gather_launches
-    pvb_launches = inertial_opt.pvb_kernel_launches
+    launches = _calls(PG)
+    pvb_launches = _calls(PVB)
     for (m, n), fn in zip(wrapped, originals):
         setattr(m, n, fn)
 
@@ -3136,12 +3146,11 @@ def phase_memory(on=None, corridor=None):
     the newest keyframe with > 20 points; the selector killing > 30%. One
     patch-gather launch a frame of the runs made here. `corridor`: phase
     4's (poses, frames), when another process rendered them."""
-    from ms_slam_tpu_torch.ops import orb
 
     card = _card()
     t_phase = time.perf_counter()
     poses, frames = corridor or _corridor_frames()
-    orb.patch_gather_launches = 0
+    _reset(PG)
     n_runs = 2
     if on is None:
         on = _drive_corridor(frames, _main_cfg(), "A, sparsify=True", card)
@@ -3155,7 +3164,7 @@ def phase_memory(on=None, corridor=None):
     rec = _drive_corridor(frames, _main_cfg(max_kf=max_kf, max_mp=max_mp),
                           f"recycling, pools {max_mp} points and {max_kf} "
                           "keyframes", card)
-    launches = orb.patch_gather_launches
+    launches = _calls(PG)
 
     kept = on["mem"]["mp_live"] / max(off["mem"]["mp_live"], 1)
     red = 1.0 - on["mem"]["live_bytes"] / max(off["mem"]["live_bytes"], 1)
@@ -3244,11 +3253,10 @@ def _drive_pipelined(frames, poses, depth, card):
     on every frame, as bench.py:92-106 drives it: no device sync between
     calls. Frames/s over frames 10-99 from the calls' start times; p50 and
     p95 of the calls' wall time."""
-    from ms_slam_tpu_torch.ops import orb
     from ms_slam_tpu_torch.utils import evaluate
     slam = _pipeline_system(_main_cfg(), depth)
     torch.cuda.synchronize()
-    orb.patch_gather_launches = 0
+    _reset(PG)
     starts, walls = [], []
     n = len(frames)
     for i in range(n):
@@ -3260,7 +3268,7 @@ def _drive_pipelined(frames, poses, depth, card):
         walls.append(time.perf_counter() - t0)
     slam.shutdown()
     torch.cuda.synchronize()
-    launches = orb.patch_gather_launches
+    launches = _calls(PG)
     gt_by_ts = {round(0.1 * i, 6): T for i, T in enumerate(poses)}
     rows = slam.poses_wc()
     est = np.stack([Twc[:3, 3] for _, Twc in rows])
@@ -3345,7 +3353,7 @@ def phase_pipeline(corridor=None, p4=None, compare_depth2=False):
     pair = torch.from_numpy(np.stack(frames[0])).cuda()
     fd = frontend.process_stereo_stacked(pair, cfg.calib, cfg.orb)
     torch.cuda.synchronize()
-    orb.patch_gather_launches = 0
+    _reset(PG)
     t0 = time.perf_counter()
     feats, stacks, _ = orb.extract_stack_multi(pair.float(), cfg.orb)
     fl, fr = (orb.Features(*[a[b] for a in feats]) for b in range(2))
@@ -3353,7 +3361,7 @@ def phase_pipeline(corridor=None, p4=None, compare_depth2=False):
                                    cfg.calib.bf, cfg.calib.min_z, cfg.orb)
     torch.cuda.synchronize()
     stack_ms = (time.perf_counter() - t0) * 1e3
-    stack_launches = orb.patch_gather_launches
+    stack_launches = _calls(PG)
     n_stack = int(sm.valid.sum())
     n_canvas = int((fd.depth > 0).sum())
     gt_depth = _corridor_depth(poses[0])
@@ -3432,7 +3440,6 @@ def _drive_numerics(frames, poses, tpu, card):
     over phase 4's frames, with MSSLAM_FORCE_TPU_NUMERICS=1 when `tpu`, else
     with the switch unset. Both launch counters are reset just before the
     run and read just after it."""
-    from ms_slam_tpu_torch.ops import orb
     from ms_slam_tpu_torch.pipeline import system as system_mod
     from ms_slam_tpu_torch.pipeline.system import System
     from ms_slam_tpu_torch.utils import evaluate
@@ -3443,8 +3450,7 @@ def _drive_numerics(frames, poses, tpu, card):
         with _tpu_switch(tpu):
             slam = System(_main_cfg(), device="cuda")
             torch.cuda.synchronize()
-            orb.patch_gather_launches = 0
-            orb.patch_gather_bf16_launches = 0
+            _reset(PG, PG_BF16)
             frame_s = []
             for i, (im_l, im_r) in enumerate(frames):
                 t0 = time.perf_counter()
@@ -3455,8 +3461,8 @@ def _drive_numerics(frames, poses, tpu, card):
             windows_before = slam._sparsifier.stats["windows"]
             slam.shutdown()
             torch.cuda.synchronize()
-            launches = {"f32": orb.patch_gather_launches,
-                        "bf16": orb.patch_gather_bf16_launches}
+            launches = {"f32": _calls(PG),
+                        "bf16": _calls(PG_BF16)}
     finally:
         system_mod.process_stereo_stacked = frontend
     gt_by_ts = {round(0.1 * i, 6): T for i, T in enumerate(poses)}
@@ -3690,7 +3696,6 @@ def _run(args):
     if args.sync_census:
         phase_sync_census(args.sync_census)
         return 0
-    from ms_slam_tpu_torch.ops import pose_opt
     kern = phase_kernel(args.parent)
     pvb = phase_pvb_kernel()
     pvb["rig"] = phase_pvb_kernel_rig()
@@ -3796,7 +3801,7 @@ def _run(args):
         "name": "pose_opt", "route": "cuda",
         "source": "ms_slam_tpu_torch/csrc/pose_opt.cu",
         "replaces": None,
-        "launches_this_process": pose_opt.pose_opt_kernel_launches,
+        "launches_this_process": _calls(POSE_OPT),
         "launches_by_phase": pose_opt_by_phase, **po}]}))
     if part:
         return 0

@@ -46,15 +46,12 @@ alone.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils.trace import span
-from . import _native, cameras, imu, lie, robust
+from . import _native, cameras, imu, lie, pose_opt, robust
 from .lie import _mv
 
 G0 = imu.GRAVITY
@@ -254,97 +251,43 @@ def pose_vel_bias_optimize_plain(
 # pose_vel_bias_optimize: the hand-written CUDA kernel and its dispatch
 # ---------------------------------------------------------------------------
 
-# kernel launches made through pose_vel_bias_optimize, and the calls that
-# took the plain version on a CPU tensor, counted under a lock as
-# `orb.py`'s gather counters are
-pvb_kernel_launches = 0
-pvb_plain_calls = 0
-_count_lock = threading.Lock()
+KERNEL = _native.Entry("pose_vel_bias", "msslam_pose_vel_bias",
+                       optional=pose_opt.RIG_PARAMS)
 
 
-def _count(name: str):
-    with _count_lock:
-        globals()[name] += 1
-
-
-_PREINT_SHAPES = (("dT", ()), ("dR", (3, 3)), ("dV", (3,)), ("dP", (3,)),
-                  ("JRg", (3, 3)), ("JVg", (3, 3)), ("JVa", (3, 3)),
-                  ("JPg", (3, 3)), ("JPa", (3, 3)), ("bias", (6,)))
-
-
-def _launch_args(model: int, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1,
+def _kernel_call(model: int, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1,
                  preint: imu.PreintState, LT, R2, p2, v2, X, uv, u_right,
                  sigma2, mask, walk_info, n_rounds: int, n_iters: int, g,
                  rig=None, right=None) -> tuple:
-    """The arguments of `msslam_pose_vel_bias` and the result tensors it
-    fills (allocated here), after checking every input: contiguous
-    float32 tensors of the plain version's shapes on R2's device, a bool
-    mask. Raises ValueError otherwise. LT: the transposed
-    `imu.sqrt_information(preint)`. bf is read as a Python float. With a
-    rig, its lens and T_rl and the (N,3) right keypoints too (else null
-    pointers). The arguments hold the inputs' addresses only: the caller keeps the
-    tensors alive until the launch."""
+    """`msslam_pose_vel_bias`'s arguments by name (each input with the plain
+    version's shape) and the result it fills, allocated on R2's device. LT:
+    the transposed `imu.sqrt_information(preint)`."""
     dev = R2.device
     if model not in (cameras.PINHOLE, cameras.KB8):
         raise ValueError(f"no camera model {model}")
-    N = X.shape[0] if X.dim() == 2 else -1
-    if not 0 <= N < 2 ** 31:
-        raise ValueError(f"X must be (N,3), got {tuple(X.shape)}")
-    floats = [("params", params, (8,)), ("R_bc", R_bc, (3, 3)),
-              ("t_bc", t_bc, (3,)), ("R1", R1, (3, 3)), ("p1", p1, (3,)),
-              ("v1", v1, (3,)), ("bg1", bg1, (3,)), ("ba1", ba1, (3,)),
-              *[(f"preint.{k}", getattr(preint, k), shape)
-                for k, shape in _PREINT_SHAPES],
-              ("sqrt_information(preint)", LT, (9, 9)), ("R2", R2, (3, 3)),
-              ("p2", p2, (3,)), ("v2", v2, (3,)), ("X", X, (N, 3)),
-              ("uv", uv, (N, 2)), ("u_right", u_right, (N,)),
-              ("sigma2", sigma2, (N,)), ("walk_info", walk_info, (6,)),
-              ("g", g, (3,))]
-    rig_floats = [] if rig is None else [
-        ("rig.params2", rig.params2, (8,)), ("rig.T", rig.T, (3, 4)),
-        ("right", right, (N, 3))]
-    for name, t, shape in floats + rig_floats + [("mask", mask, (N,))]:
-        dtype = torch.bool if name == "mask" else torch.float32
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != dev:
-            raise ValueError(
-                f"{name} must be a contiguous {shape} {dtype} tensor on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    N = X.shape[0] if X.dim() else 0
     state = torch.empty(21, dtype=torch.float32, device=dev)
+    rig_kw = pose_opt.rig_call(rig, right, N, dev)
     out = PVBResult(R_wb=state[:9].view(3, 3), p_wb=state[9:12],
                     v=state[12:15], bg=state[15:18], ba=state[18:21],
                     inlier=torch.empty(N, dtype=torch.bool, device=dev),
-                    n_inliers=torch.empty((), dtype=torch.int32,
-                                          device=dev))
-    rig_args = (None,) * 5
-    if rig is not None:
-        out = out._replace(
-            inlier_r=torch.empty(N, dtype=torch.bool, device=dev),
-            n_right=torch.empty((), dtype=torch.int32, device=dev))
-        rig_args = (rig.params2.data_ptr(), rig.T.data_ptr(),
-                    right.data_ptr(), out.inlier_r.data_ptr(),
-                    out.n_right.data_ptr())
-    stream = (torch.cuda.current_stream(dev).cuda_stream
-              if dev.type == "cuda" else None)
-    args = (model, float(bf), N, int(n_rounds), int(n_iters),
-            *[t.data_ptr() for _, t, _ in floats[:-2]], mask.data_ptr(),
-            walk_info.data_ptr(), g.data_ptr(), state.data_ptr(),
-            out.inlier.data_ptr(), out.n_inliers.data_ptr(), *rig_args,
-            stream)
-    return args, out
-
-
-def load_kernel() -> ctypes.CDLL:
-    """The kernel's library, built (nvcc, at first use in a checkout) and
-    loaded. A System that will track with an IMU on the card calls it while
-    it is set up, so that no tracked frame waits for the compiler."""
-    lib = _native.load("pose_vel_bias")
-    fn = lib.msslam_pose_vel_bias
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p] * 38
-        fn.restype = ctypes.c_int
-    return lib
+                    n_inliers=torch.empty((), dtype=torch.int32, device=dev),
+                    inlier_r=rig_kw["inlier_r"], n_right=rig_kw["n_right"])
+    m3, v3 = (3, 3), (3,)
+    kw = dict(model=model, bf=bf, n=N, n_rounds=n_rounds, n_iters=n_iters,
+              params=(params, (8,)), R_bc=(R_bc, m3), t_bc=(t_bc, v3),
+              R1=(R1, m3), p1=(p1, v3), v1=(v1, v3), bg1=(bg1, v3),
+              ba1=(ba1, v3), dT=(preint.dT, ()), dR=(preint.dR, m3),
+              dV=(preint.dV, v3), dP=(preint.dP, v3),
+              **{k: (getattr(preint, k), m3)
+                 for k in ("JRg", "JVg", "JVa", "JPg", "JPa")},
+              bias=(preint.bias, (6,)), LT=(LT, (9, 9)), R2=(R2, m3),
+              p2=(p2, v3), v2=(v2, v3), X=(X, (N, 3)), uv=(uv, (N, 2)),
+              u_right=(u_right, (N,)), sigma2=(sigma2, (N,)),
+              mask=(mask, (N,)), walk=(walk_info, (6,)), g=(g, v3),
+              state=state, inlier=out.inlier, n_inliers=out.n_inliers,
+              **rig_kw)
+    return kw, out
 
 
 def pose_vel_bias_optimize(
@@ -353,34 +296,25 @@ def pose_vel_bias_optimize(
         R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info,
         n_rounds: int = 4, n_iters: int = 6, g=None, *, rig=None,
         right=None, timing=None) -> PVBResult:
-    """`pose_vel_bias_optimize_plain` by the tensors' device: a CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel
+    """`pose_vel_bias_optimize_plain` by the tensors' device
+    (`_native.takes_plain`): a CUDA tensor launches the kernel
     (csrc/pose_vel_bias.cu) on the current stream, or raises ValueError
-    for inputs it does not take (`_launch_args`). rig / right: the
-    right-camera rows, in the same launch. Given a `Timing`, the launch is
-    the span `pvb_opt.kernel`."""
-    if R2.device.type == "cpu":
-        _count("pvb_plain_calls")
+    for inputs it does not take. rig / right: the right-camera rows, in
+    the same launch. Given a `Timing`, the launch is the span
+    `pvb_opt.kernel`."""
+    if _native.takes_plain(R2.device, "pose_vel_bias_optimize"):
         return pose_vel_bias_optimize_plain(
             model, params, bf, R_bc, t_bc, R1, p1, v1, bg1, ba1, preint,
             R2, p2, v2, X, uv, u_right, sigma2, mask, walk_info, n_rounds,
             n_iters, g, rig=rig, right=right)
-    if R2.device.type != "cuda":
-        raise ValueError(f"no pose_vel_bias_optimize for device {R2.device}")
     if g is None:
         g = imu._default_g(R2)
     LT = imu.sqrt_information(preint).transpose(-1, -2).contiguous()
-    args, out = _launch_args(model, params, bf, R_bc, t_bc, R1, p1, v1, bg1,
-                             ba1, preint, LT, R2, p2, v2, X, uv, u_right,
-                             sigma2, mask, walk_info, n_rounds, n_iters, g,
-                             rig, right)
-    fn = load_kernel().msslam_pose_vel_bias
-    with span(timing, "pvb_opt.kernel"):
-        rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(
-            f"pose_vel_bias kernel launch failed: CUDA error {rc}")
-    _count("pvb_kernel_launches")
+    kw, out = _kernel_call(model, params, bf, R_bc, t_bc, R1, p1, v1, bg1,
+                           ba1, preint, LT, R2, p2, v2, X, uv, u_right,
+                           sigma2, mask, walk_info, n_rounds, n_iters, g,
+                           rig, right)
+    KERNEL(R2.device, timing=timing, span="pvb_opt.kernel", **kw)
     return out
 
 

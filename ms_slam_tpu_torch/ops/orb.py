@@ -29,10 +29,8 @@ tests/test_torch_tpu_numerics.py):
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import os
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -321,22 +319,6 @@ def detect_canvas(canvas: torch.Tensor, w: int, cfg: OrbConfig):
 # Patch gather: the hand-written CUDA kernel and its plain version
 # ---------------------------------------------------------------------------
 
-# kernel launches made through extract_patches_canvas, one counter per
-# entry point (f32 and bf16 canvas; read and reset by chip_smoke.py), and
-# the calls that took the plain version on a CPU tensor. All are counted
-# under one lock: a prefetch worker thread and the main thread (a
-# relocalization query, the stack extractor) may extract at once.
-patch_gather_launches = 0
-patch_gather_bf16_launches = 0
-patch_gather_plain_calls = 0
-_count_lock = threading.Lock()
-
-
-def _count(name: str):
-    with _count_lock:
-        globals()[name] += 1
-
-
 def extract_patches_canvas_plain(canvas: torch.Tensor, bi: torch.Tensor,
                                  ys: torch.Tensor, xs: torch.Tensor
                                  ) -> torch.Tensor:
@@ -374,29 +356,19 @@ def _bf16_kernel_layout_error(shape, data_ptr: int):
     return None
 
 
-_ENTRY = {torch.float32: ("msslam_patch_gather_f32", "patch_gather_launches"),
-          torch.bfloat16: ("msslam_patch_gather_bf16",
-                           "patch_gather_bf16_launches")}
+# the kernel's entry point for each canvas dtype
+_GATHER = {torch.float32: _native.Entry("patch_gather",
+                                        "msslam_patch_gather_f32"),
+           torch.bfloat16: _native.Entry("patch_gather",
+                                         "msslam_patch_gather_bf16")}
 
 
-def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
-                           ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """(B,H,Wc) float32 or bfloat16 canvas, (n,) int32 image index / row /
-    column -> (n,45,45) float32 patches (a bf16 canvas is widened, which is
-    exact).
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel's entry point for its dtype (csrc/patch_gather.cu) on the
-    current stream or raises (a bf16 canvas also when its layout does not
-    suit the kernel's tensor map: `_bf16_kernel_layout_error`)."""
-    if canvas.device.type == "cpu":
-        _count("patch_gather_plain_calls")
-        return extract_patches_canvas_plain(canvas, bi, ys, xs).float()
-    if canvas.device.type != "cuda":
-        raise ValueError(f"no patch gather for device {canvas.device}")
+def _gather_call(canvas, bi, ys, xs) -> tuple:
+    """The entry point for the canvas's dtype, its arguments by name (each
+    input with the shape the kernel reads) and the (n,45,45) float32
+    result it fills, after the checks that are the gather's own."""
     E = 2 * EXTRACT_R + 1
-    if canvas.dtype not in _ENTRY or canvas.dim() != 3 \
-            or not canvas.is_contiguous():
+    if canvas.dtype not in _GATHER or canvas.dim() != 3:
         raise ValueError("canvas must be a contiguous (B,H,Wc) float32 or "
                          f"bfloat16 tensor, got {canvas.dtype} "
                          f"{tuple(canvas.shape)}")
@@ -411,32 +383,28 @@ def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
         if why is not None:
             raise ValueError(why)
     n = bi.shape[0]
-    for name, t in (("bi", bi), ("ys", ys), ("xs", xs)):
-        if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous() \
-                or t.device != canvas.device:
-            raise ValueError(f"{name} must be a contiguous ({n},) int32 "
-                             f"tensor on {canvas.device}")
     out = torch.empty((n, E, E), dtype=torch.float32, device=canvas.device)
-    entry, counter = _ENTRY[canvas.dtype]
-    stream = torch.cuda.current_stream(canvas.device).cuda_stream
-    rc = getattr(_patch_gather_lib(), entry)(
-        canvas.data_ptr(), bi.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-        out.data_ptr(), n, B, H, Wc, stream)
-    if rc != 0:
-        raise RuntimeError(f"patch_gather kernel launch failed: CUDA error {rc}")
-    _count(counter)
+    kw = dict(canvas=(canvas, (B, H, Wc)), bi=(bi, (n,)), ys=(ys, (n,)),
+              xs=(xs, (n,)), out=out, n=n, B=B, H=H, Wc=Wc)
+    return _GATHER[canvas.dtype], kw, out
+
+
+def extract_patches_canvas(canvas: torch.Tensor, bi: torch.Tensor,
+                           ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """(B,H,Wc) float32 or bfloat16 canvas, (n,) int32 image index / row /
+    column -> (n,45,45) float32 patches (a bf16 canvas is widened, which is
+    exact).
+
+    By the canvas's device (`_native.takes_plain`): a CUDA tensor launches
+    the kernel's entry point for its dtype (csrc/patch_gather.cu) on the
+    current stream or raises (a bf16 canvas also when its layout does not
+    suit the kernel's tensor map: `_bf16_kernel_layout_error`)."""
+    if _native.takes_plain(canvas.device, "extract_patches_canvas",
+                           "patch gather"):
+        return extract_patches_canvas_plain(canvas, bi, ys, xs).float()
+    entry, kw, out = _gather_call(canvas, bi, ys, xs)
+    entry(canvas.device, **kw)
     return out
-
-
-def _patch_gather_lib():
-    lib = _native.load("patch_gather")
-    for entry, _ in _ENTRY.values():
-        fn = getattr(lib, entry)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
 
 
 # ---------------------------------------------------------------------------

@@ -20,13 +20,10 @@ solve is the left rows' alone.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
 
-from ..utils.trace import span
 from . import _native, cameras, lie, robust
 
 MONO_CHI2 = robust.CHI2_2DOF    # 5.991
@@ -174,108 +171,62 @@ def pose_optimize_plain(model: int, params, bf, R0, t0, X, uv, u_right,
                          n_right=n_right)
 
 
-# kernel launches made through pose_optimize, counted under a lock as
-# `inertial_opt.py`'s are
-pose_opt_kernel_launches = 0
-_count_lock = threading.Lock()
+# the kernel's entry point; a rig's five pointers are null without one
+RIG_PARAMS = ("params2", "T_rl", "right", "inlier_r", "n_right")
+KERNEL = _native.Entry("pose_opt", "msslam_pose_opt", optional=RIG_PARAMS)
 
 
-def _launch_args(model: int, params, bf, R0, t0, X, uv, u_right, sigma2,
+def rig_call(rig, right, N: int, dev) -> dict:
+    """The rig's arguments of a tracking kernel (`RIG_PARAMS`; all None
+    without a rig), with the right rows' flags and count it fills."""
+    if rig is None:
+        return dict.fromkeys(RIG_PARAMS)
+    return dict(params2=(rig.params2, (8,)), T_rl=(rig.T, (3, 4)),
+                right=(right, (N, 3)),
+                inlier_r=torch.empty(N, dtype=torch.bool, device=dev),
+                n_right=torch.empty((), dtype=torch.int32, device=dev))
+
+
+def _kernel_call(model: int, params, bf, R0, t0, X, uv, u_right, sigma2,
                  mask, n_rounds: int, n_iters: int, rig=None,
                  right=None) -> tuple:
-    """The arguments of `msslam_pose_opt`, the result it fills and the
-    right rows' flags (None without a rig), allocated here after checking
-    every input: contiguous float32 tensors of the plain version's shapes
-    on R0's device, a bool mask. Raises ValueError otherwise. bf is read as
-    a Python float. With a rig, its lens and T_rl and the (N,3) right
-    keypoints too (else null pointers). The arguments hold the inputs'
-    addresses only: the caller keeps the tensors alive until the launch."""
+    """`msslam_pose_opt`'s arguments by name (each input with the plain
+    version's shape) and the result it fills, allocated on R0's device."""
     dev = R0.device
     if model not in (cameras.PINHOLE, cameras.KB8):
         raise ValueError(f"no camera model {model}")
-    N = X.shape[0] if X.dim() == 2 else -1
-    if not 0 <= N < 2 ** 31:
-        raise ValueError(f"X must be (N,3), got {tuple(X.shape)}")
-    floats = [("params", params, (8,)), ("R0", R0, (3, 3)),
-              ("t0", t0, (3,)), ("X", X, (N, 3)), ("uv", uv, (N, 2)),
-              ("u_right", u_right, (N,)), ("sigma2", sigma2, (N,))]
-    rig_floats = [] if rig is None else [
-        ("rig.params2", rig.params2, (8,)), ("rig.T", rig.T, (3, 4)),
-        ("right", right, (N, 3))]
-    for name, t, shape in floats + rig_floats + [("mask", mask, (N,))]:
-        dtype = torch.bool if name == "mask" else torch.float32
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != dev:
-            raise ValueError(
-                f"{name} must be a contiguous {shape} {dtype} tensor on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    N = X.shape[0] if X.dim() else 0
     state = torch.empty(13, dtype=torch.float32, device=dev)
+    rig_kw = rig_call(rig, right, N, dev)
     out = PoseOptResult(R=state[:9].view(3, 3), t=state[9:12],
                         inlier=torch.empty(N, dtype=torch.bool, device=dev),
                         n_inliers=torch.empty((), dtype=torch.int32,
                                               device=dev),
-                        chi2=state[12])
-    inlier_r, rig_args = None, (None,) * 5
-    if rig is not None:
-        inlier_r = torch.empty(N, dtype=torch.bool, device=dev)
-        out = out._replace(n_right=torch.empty((), dtype=torch.int32,
-                                               device=dev))
-        rig_args = (rig.params2.data_ptr(), rig.T.data_ptr(),
-                    right.data_ptr(), inlier_r.data_ptr(),
-                    out.n_right.data_ptr())
-    stream = (torch.cuda.current_stream(dev).cuda_stream
-              if dev.type == "cuda" else None)
-    args = (model, float(bf), N, int(n_rounds), int(n_iters),
-            *[t.data_ptr() for _, t, _ in floats], mask.data_ptr(),
-            state.data_ptr(), out.inlier.data_ptr(),
-            out.n_inliers.data_ptr(), *rig_args, stream)
-    return args, out, inlier_r
-
-
-# msslam_pose_opt's parameters: model, bf, n, n_rounds, n_iters, then 11
-# pointers, the rig's 5 and the stream
-ARGTYPES = [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p] * 17
-
-
-def load_kernel() -> ctypes.CDLL:
-    """The kernel's library, built (nvcc, at first use in a checkout) and
-    loaded. A System on the card calls it while it is set up, so that no
-    tracked frame waits for the compiler."""
-    lib = _native.load("pose_opt")
-    fn = lib.msslam_pose_opt
-    if fn.argtypes is None:
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+                        chi2=state[12], n_right=rig_kw["n_right"])
+    kw = dict(model=model, bf=bf, n=N, n_rounds=n_rounds, n_iters=n_iters,
+              params=(params, (8,)), R0=(R0, (3, 3)), t0=(t0, (3,)),
+              X=(X, (N, 3)), uv=(uv, (N, 2)), u_right=(u_right, (N,)),
+              sigma2=(sigma2, (N,)), mask=(mask, (N,)), state=state,
+              inlier=out.inlier, n_inliers=out.n_inliers, **rig_kw)
+    return kw, out
 
 
 def pose_optimize(model: int, params, bf, R0, t0, X, uv, u_right, sigma2,
                   mask, n_rounds: int = 4, n_iters: int = 10, *, rig=None,
                   right=None, timing=None) -> PoseOptResult:
-    """`pose_optimize_plain` by the tensors' device: a CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (csrc/pose_opt.cu) on
-    the current stream, or raises ValueError for inputs it does not take
-    (`_launch_args`: float32 only). The start pose may come in any layout
-    (the inertial step's is a transposed view): it is made contiguous, a
-    copy of 12 floats at most. rig / right: the right-camera rows, in the
-    same launch. Given a `Timing`, the launch is the span
-    `pose_opt.kernel`."""
-    if R0.device.type == "cpu":
+    """`pose_optimize_plain` by the tensors' device (`_native.takes_plain`):
+    a CUDA tensor launches the kernel (csrc/pose_opt.cu) on the current
+    stream, or raises ValueError for inputs it does not take (float32
+    only). The start pose may come in any layout (the inertial step's is a
+    transposed view): it is made contiguous, a copy of 12 floats at most.
+    rig / right: the right-camera rows, in the same launch. Given a
+    `Timing`, the launch is the span `pose_opt.kernel`."""
+    if _native.takes_plain(R0.device, "pose_optimize"):
         return pose_optimize_plain(model, params, bf, R0, t0, X, uv, u_right,
                                    sigma2, mask, n_rounds, n_iters, rig=rig,
                                    right=right)
-    if R0.device.type != "cuda":
-        raise ValueError(f"no pose_optimize for device {R0.device}")
-    args, out, _ = _launch_args(model, params, bf, R0.contiguous(),
-                                t0.contiguous(), X, uv, u_right, sigma2,
-                                mask, n_rounds, n_iters, rig, right)
-    fn = load_kernel().msslam_pose_opt
-    with span(timing, "pose_opt.kernel"):
-        rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"pose_opt kernel launch failed: CUDA error {rc}")
-    global pose_opt_kernel_launches
-    with _count_lock:
-        pose_opt_kernel_launches += 1
+    kw, out = _kernel_call(model, params, bf, R0.contiguous(),
+                           t0.contiguous(), X, uv, u_right, sigma2, mask,
+                           n_rounds, n_iters, rig, right)
+    KERNEL(R0.device, timing=timing, span="pose_opt.kernel", **kw)
     return out

@@ -310,9 +310,9 @@ class System:
                             device=self.device))
         self.imu_frames = 0      # frames tracked through track_full_imu
         if self.device.type == "cuda":   # nvcc, if it runs, runs in set-up
-            pose_opt.load_kernel()
+            pose_opt.KERNEL.fn()
             if cfg.use_imu:
-                inertial_opt.load_kernel()
+                inertial_opt.KERNEL.fn()
         # Atlas labels (host): the map id of each keyframe slot; a fresh map
         # starts after irrecoverable loss (ref Tracking::CreateMapInAtlas)
         self.active_map = 0

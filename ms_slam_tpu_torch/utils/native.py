@@ -4,21 +4,21 @@ remap, and VmRSS telemetry.
 
 Port of `ms_slam_tpu/utils/native.py` with one difference: the library is
 built from the port's own copy of the source into
-`ms_slam_tpu_torch/_build/libmsslam_runtime.so` (written under a temporary
-name and renamed, so a concurrent loader never sees a partial file), never
-into the source tree. This is host code, not a kernel: where `g++` or
-libpng/libjpeg is missing, `available()` is False and the dataset readers
-decode with cv2 instead, as in the reference.
+`ms_slam_tpu_torch/_build/libmsslam_runtime.so` by `ops._native.build`
+(the kernels' build, with g++), never into the source tree. This is host
+code, not a kernel: where `g++` or libpng/libjpeg is missing,
+`available()` is False and the dataset readers decode with cv2 instead,
+as in the reference.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import tempfile
 from functools import lru_cache
 
 import numpy as np
+
+from ..ops import _native
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "msslam_runtime.cpp")
@@ -29,24 +29,10 @@ _LIB = os.path.join(BUILD_DIR, "libmsslam_runtime.so")
 def _build() -> str:
     """Compile the runtime unless an up-to-date library exists; returns its
     path."""
-    if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(
-            _SRC):
-        return _LIB
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        done = subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-             _SRC, "-o", tmp, "-lpng", "-ljpeg", "-lz", "-lpthread"],
-            capture_output=True, text=True)
-        if done.returncode != 0:
-            raise OSError(f"g++ failed on {_SRC}:\n{done.stderr}")
-        os.replace(tmp, _LIB)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return _LIB
+    return _native.build(
+        "msslam_runtime", src=_SRC, lib=_LIB, command=[
+            "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"],
+        libs=["-lpng", "-ljpeg", "-lz", "-lpthread"])
 
 
 @lru_cache()
@@ -55,7 +41,7 @@ def _load():
     outcome is kept for the process, so a missing compiler costs one try."""
     try:
         lib = ctypes.CDLL(_build())
-    except OSError as e:            # no g++, no libpng/libjpeg, a bad build
+    except (OSError, RuntimeError) as e:    # no g++, no libpng/libjpeg
         return None, e
     lib.msslam_pipeline_create.restype = ctypes.c_void_p
     lib.msslam_pipeline_create.argtypes = [

@@ -15,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from ms_slam_tpu_torch.ops import orb
+from ms_slam_tpu_torch.ops import _native, orb
 from ms_slam_tpu_torch.utils.config import Settings
+
+# the calls that took the gather's plain version, in _native.calls
+PLAIN = "extract_patches_canvas"
 
 torch.set_num_threads(1)       # one thread per test process: xdist workers
 try:                            # would otherwise fight over the cores
@@ -95,9 +98,9 @@ def test_cpu_wrapper_takes_the_plain_version_whatever_the_layout():
     bi = torch.tensor([0, 1, 1, 0, 1], dtype=torch.int32)
     ys = torch.tensor([0, 30, 63, 40, 22], dtype=torch.int32)
     xs = torch.tensor([249, 0, 100, 227, 300], dtype=torch.int32)
-    before = orb.patch_gather_plain_calls
+    before = _native.calls[PLAIN]
     out = orb.extract_patches_canvas(view, bi, ys, xs)
-    assert orb.patch_gather_plain_calls == before + 1
+    assert _native.calls[PLAIN] == before + 1
     assert out.dtype == torch.float32 and out.shape == (5, 45, 45)
     assert torch.equal(out, orb.extract_patches_canvas_plain(
         view.contiguous(), bi, ys, xs).float())

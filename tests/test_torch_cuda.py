@@ -14,13 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from ms_slam_tpu_torch.ops import orb
+from ms_slam_tpu_torch.ops import _native, orb
 
 torch.set_num_threads(1)       # one thread per test process: xdist workers
 try:                            # would otherwise fight over the cores
     torch.set_num_interop_threads(1)
 except RuntimeError:
     pass
+
+# the gather's entry points (launches) and wrapper (plain calls) in
+# _native.calls
+F32, BF16 = "msslam_patch_gather_f32", "msslam_patch_gather_bf16"
+PLAIN = "extract_patches_canvas"
 
 
 def _inputs(rng, B=2, H=384, Wc=5888, n=512):
@@ -69,10 +74,10 @@ def test_patch_gather_kernel_cases_on_card(name):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
             for a in _case(name)]
-    before = orb.patch_gather_launches
+    before = _native.calls[F32]
     out = orb.extract_patches_canvas(*args)
     torch.cuda.synchronize()
-    assert orb.patch_gather_launches == before + 1
+    assert _native.calls[F32] == before + 1
     assert out.shape == (args[1].shape[0], 45, 45)
     assert torch.equal(out, orb.extract_patches_canvas_plain(*args))
 
@@ -83,10 +88,10 @@ def test_patch_gather_kernel_matches_plain_on_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     args = [torch.from_numpy(a).cuda()
             for a in _inputs(np.random.default_rng(0))]
-    before = orb.patch_gather_launches
+    before = _native.calls[F32]
     out = orb.extract_patches_canvas(*args)
     torch.cuda.synchronize()
-    assert orb.patch_gather_launches == before + 1
+    assert _native.calls[F32] == before + 1
     assert torch.equal(out, orb.extract_patches_canvas_plain(*args))
     with pytest.raises(ValueError):          # f64 canvas: refused, not cast
         orb.extract_patches_canvas(args[0].double(), *args[1:])
@@ -112,11 +117,11 @@ def _bf16_gather_on_card(canvas, bi, ys, xs):
     args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
             for a in (canvas, bi, ys, xs)]
     args[0] = args[0].to(torch.bfloat16)
-    f32, bf16 = orb.patch_gather_launches, orb.patch_gather_bf16_launches
+    f32, bf16 = _native.calls[F32], _native.calls[BF16]
     out = orb.extract_patches_canvas(*args)
     torch.cuda.synchronize()
-    assert orb.patch_gather_bf16_launches == bf16 + 1
-    assert orb.patch_gather_launches == f32
+    assert _native.calls[BF16] == bf16 + 1
+    assert _native.calls[F32] == f32
     assert out.dtype == torch.float32
     assert out.shape == (bi.shape[0], 45, 45)
     assert torch.equal(out, orb.extract_patches_canvas_plain(*args).float())
@@ -172,12 +177,12 @@ def test_patch_gather_bf16_refuses_misaligned_view_on_card():
     view = flat[1:1 + canvas.numel()].view(canvas.shape)
     view.copy_(canvas)
     assert view.is_contiguous() and view.storage_offset() == 1
-    before = (orb.patch_gather_launches, orb.patch_gather_bf16_launches,
-              orb.patch_gather_plain_calls)
+    before = (_native.calls[F32], _native.calls[BF16],
+              _native.calls[PLAIN])
     with pytest.raises(ValueError, match="16-byte aligned"):
         orb.extract_patches_canvas(view, bi, ys, xs)
-    assert (orb.patch_gather_launches, orb.patch_gather_bf16_launches,
-            orb.patch_gather_plain_calls) == before
+    assert (_native.calls[F32], _native.calls[BF16],
+            _native.calls[PLAIN]) == before
 
 
 @pytest.mark.cuda
@@ -189,11 +194,11 @@ def test_patch_gather_refuses_other_dtypes_on_card(dtype):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     args = [torch.from_numpy(a).cuda()
             for a in _inputs(np.random.default_rng(0), n=8)]
-    f32, bf16 = orb.patch_gather_launches, orb.patch_gather_bf16_launches
+    f32, bf16 = _native.calls[F32], _native.calls[BF16]
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         orb.extract_patches_canvas(args[0].to(dtype), *args[1:])
-    assert (orb.patch_gather_launches,
-            orb.patch_gather_bf16_launches) == (f32, bf16)
+    assert (_native.calls[F32],
+            _native.calls[BF16]) == (f32, bf16)
 
 
 def test_patch_gather_refuses_other_devices():
@@ -468,10 +473,10 @@ def test_mono_rgbd_frontend_card_against_cpu(sensor):
         return frontend.process_rgbd(im, torch.from_numpy(depth).to(dev),
                                      calib, cfg)
     cpu = run("cpu")
-    before = orb.patch_gather_launches
+    before = _native.calls[F32]
     card = run("cuda")
     torch.cuda.synchronize()
-    assert orb.patch_gather_launches == before + 1
+    assert _native.calls[F32] == before + 1
     fc, fg = cpu.feats, card.feats
     same = ((fc.xy == fg.xy.cpu()).all(1) & (fc.octave == fg.octave.cpu())
             & (fc.valid == fg.valid.cpu()))
@@ -730,10 +735,10 @@ def test_patch_gather_stack_shape_on_card():
     lv = torch.from_numpy(rng.integers(0, P, n).astype(np.int32)).cuda()
     ys = torch.from_numpy(rng.integers(22, H + 8, n).astype(np.int32)).cuda()
     xs = torch.from_numpy(rng.integers(22, W + 8, n).astype(np.int32)).cuda()
-    before = orb.patch_gather_launches
+    before = _native.calls[F32]
     out = orb.extract_patches(stack, lv, ys, xs)
     torch.cuda.synchronize()
-    assert orb.patch_gather_launches == before + 1
+    assert _native.calls[F32] == before + 1
     assert torch.equal(out, orb.extract_patches_canvas_plain(stack, lv, ys,
                                                              xs))
 
@@ -763,13 +768,13 @@ def test_prefetch_on_side_stream_matches_sync_frontend_on_card():
             world.render_stereo(K, synth.make_trajectory(30, "arc")[3], BL,
                                 H, W))
     sync = slam._dispatch_frontend(l, r)
-    before = orb.patch_gather_launches
+    before = _native.calls[F32]
     slam._next_images = (l, r)
     slam._prefetch_next()                      # on the worker thread
     slam._next_images = None
     frame = slam._take_prefetched()
     assert slam.prefetch_hits == 1 and slam._side_stream is not None
-    assert orb.patch_gather_launches == before + 1
+    assert _native.calls[F32] == before + 1
     for name, a, b in zip(("feats", "u_right", "depth", "sigma2"), frame,
                           sync):
         pairs = zip(a, b) if name == "feats" else [(a, b)]

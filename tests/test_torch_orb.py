@@ -23,8 +23,12 @@ import pytest
 import torch
 
 from ms_slam_tpu.ops import orb as jorb
+from ms_slam_tpu_torch.ops import _native
 from ms_slam_tpu_torch.ops import orb as torb
 from test_orb import mondrian
+
+# the gather's f32 entry point: its launches in _native.calls
+F32 = "msslam_patch_gather_f32"
 
 torch.set_num_threads(1)       # one thread per test process: xdist workers
 try:                            # would otherwise fight over the cores
@@ -86,10 +90,10 @@ def test_patch_gather_plain_vs_dynamic_slice(rng):
     np.testing.assert_array_equal(
         torb.extract_patches_canvas_plain(*args).numpy(), ref)
     # the wrapper takes the plain version for CPU tensors, launching nothing
-    before = torb.patch_gather_launches
+    before = _native.calls[F32]
     np.testing.assert_array_equal(torb.extract_patches_canvas(*args).numpy(),
                                   ref)
-    assert torb.patch_gather_launches == before
+    assert _native.calls[F32] == before
 
 
 def test_patch_gather_plain_vs_pallas_interpret(rng):

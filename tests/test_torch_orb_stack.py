@@ -29,9 +29,13 @@ import torch
 
 from ms_slam_tpu.ops import orb as jorb
 from ms_slam_tpu.ops import stereo as jst
+from ms_slam_tpu_torch.ops import _native
 from ms_slam_tpu_torch.ops import orb as torb
 from ms_slam_tpu_torch.ops import stereo as tst
 from ms_slam_tpu_torch.utils import synth
+
+# the calls that took the gather's plain version, in _native.calls
+PLAIN = "extract_patches_canvas"
 
 torch.set_num_threads(1)       # one thread per test process: xdist workers
 try:                            # would otherwise fight over the cores
@@ -106,9 +110,9 @@ def test_extract_patches_exact(pair):
     xs = np.concatenate([xs, [W + 9, R, R, W - 1]]).astype(np.int32)
     pj = np.asarray(jorb.extract_patches(jnp.asarray(stack), jnp.asarray(lv),
                                          jnp.asarray(ys), jnp.asarray(xs)))
-    before = torb.patch_gather_plain_calls
+    before = _native.calls[PLAIN]
     pt = torb.extract_patches(T(stack), T(lv), T(ys), T(xs)).numpy()
-    assert torb.patch_gather_plain_calls == before + 1
+    assert _native.calls[PLAIN] == before + 1
     np.testing.assert_array_equal(pt, pj)
 
 
@@ -231,7 +235,7 @@ def test_patch_gather_counted_from_many_threads():
         rng.integers(0, 128, 4)))
     ref = torb.extract_patches_canvas(canvas, bi, ys, xs)
     n_threads, n_calls = 16, 200
-    before = torb.patch_gather_plain_calls
+    before = _native.calls[PLAIN]
     errors = []
 
     def work():
@@ -252,4 +256,4 @@ def test_patch_gather_counted_from_many_threads():
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert not errors
-    assert torb.patch_gather_plain_calls == before + n_threads * n_calls
+    assert _native.calls[PLAIN] == before + n_threads * n_calls

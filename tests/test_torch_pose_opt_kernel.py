@@ -22,13 +22,14 @@ so the two agree to rounding, not bit for bit.
 """
 import ctypes
 import os
-import re
 
 import numpy as np
 import pytest
 import torch
 
 from ms_slam_tpu_torch.ops import _native, cameras, pose_opt
+
+ENTRY = pose_opt.KERNEL.name     # its launches in _native.calls
 
 torch.set_num_threads(1)       # one thread per test process: xdist workers
 try:                            # would otherwise fight over the cores
@@ -208,8 +209,10 @@ def test_pose_opt_kernel_against_plain_on_card(name):
         # the right rows' flags, which the result does not carry: a second
         # launch through the C entry point, the same as the first, and
         # within 2 slots of the plain version's gate at its own pose
-        call, again, inlier_r = pose_opt._launch_args(*args, 4, 10, **kw)
-        assert pose_opt.load_kernel().msslam_pose_opt(*call) == 0
+        call, again = pose_opt._kernel_call(*args, 4, 10, **kw)
+        c_args = pose_opt.KERNEL.args(args[3].device, **call)
+        assert pose_opt.KERNEL.fn()(*c_args) == 0
+        inlier_r = call["inlier_r"]
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(again, out))
         want = right_flags(ref.R, ref.t, args, kw)
@@ -222,11 +225,11 @@ def test_pose_opt_kernel_against_plain_on_card(name):
 def test_pose_opt_kernel_one_launch_a_call_on_card():
     dev = _card()
     args, kw, _ = scenario(dev, N=512)
-    before = pose_opt.pose_opt_kernel_launches
+    before = _native.calls[ENTRY]
     for _ in range(3):
         pose_opt.pose_optimize(*args, n_rounds=2, n_iters=5)
     torch.cuda.synchronize()
-    assert pose_opt.pose_opt_kernel_launches == before + 3
+    assert _native.calls[ENTRY] == before + 3
     # the start pose in another layout (the inertial step's is a
     # transposed view) gives the same launch
     args = list(args)
@@ -235,18 +238,19 @@ def test_pose_opt_kernel_one_launch_a_call_on_card():
     assert not args[3].is_contiguous()
     assert all(torch.equal(a, b) for a, b in
                zip(pose_opt.pose_optimize(*args), out) if a is not None)
-    assert pose_opt.pose_opt_kernel_launches == before + 5
+    assert _native.calls[ENTRY] == before + 5
     args[5] = args[5].double()                       # X
     with pytest.raises(ValueError, match="X must be"):
         pose_opt.pose_optimize(*args)
-    assert pose_opt.pose_opt_kernel_launches == before + 5
+    assert _native.calls[ENTRY] == before + 5
 
 
 def test_pose_opt_wrapper_takes_plain_version_on_cpu():
     args, kw, _ = scenario(torch.device("cpu"), N=200, model=1, rig=True)
-    before = pose_opt.pose_opt_kernel_launches
+    before = (_native.calls[ENTRY], _native.calls["pose_optimize"])
     out = pose_opt.pose_optimize(*args, n_rounds=2, n_iters=3, **kw)
-    assert pose_opt.pose_opt_kernel_launches == before
+    assert (_native.calls[ENTRY],
+            _native.calls["pose_optimize"]) == (before[0], before[1] + 1)
     ref = pose_opt.pose_optimize_plain(*args, n_rounds=2, n_iters=3, **kw)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
@@ -272,6 +276,15 @@ def _refused(args, kw, name):
     return args, kw
 
 
+def _checked(args, kw):
+    """The wrapper's call (`_kernel_call`) through the entry point's checks,
+    on the tensors' device, without a launch: (C arguments, result, right
+    rows' flags)."""
+    call, out = pose_opt._kernel_call(*args, 4, 10, **kw)
+    return (pose_opt.KERNEL.args(args[3].device, **call), out,
+            call["inlier_r"])
+
+
 @pytest.mark.parametrize("name", ["float64", "strided", "mask_dtype",
                                   "short_params", "device", "model",
                                   "right_shape"])
@@ -281,8 +294,8 @@ def test_pose_opt_launch_args_refuse_what_the_kernel_cannot_take(name):
     args, kw, _ = scenario(torch.device("cpu"), N=50, model=1, rig=True)
     bad_args, bad_kw = _refused(args, kw, name)
     with pytest.raises(ValueError):
-        pose_opt._launch_args(*bad_args, 4, 10, **bad_kw)
-    call, out, inlier_r = pose_opt._launch_args(*args, 4, 10, **kw)
+        _checked(bad_args, bad_kw)
+    call, out, inlier_r = _checked(args, kw)
     assert out.inlier.shape == inlier_r.shape == (50,)
 
 
@@ -293,28 +306,118 @@ def test_pose_opt_wrapper_refuses_other_devices():
         pose_opt.pose_optimize(*args)
 
 
-def _c_params(src: str, fn: str) -> list[str]:
-    """The parameter declarations of an extern "C" function in a source."""
-    m = re.search(rf"{fn}\(([^)]*)\)", src)
-    return [p.strip() for p in m.group(1).split(",")]
+# each entry point's C declaration, written out by hand (`const` left out)
+C_INTERFACES = {
+    "msslam_pose_opt":
+        "int model, float bf, int n, int n_rounds, int n_iters, "
+        "float* params, float* R0, float* t0, float* X, float* uv, "
+        "float* u_right, float* sigma2, uint8_t* mask, float* state, "
+        "uint8_t* inlier, int* n_inliers, float* params2, float* T_rl, "
+        "float* right, uint8_t* inlier_r, int* n_right, void* stream",
+    "msslam_pose_vel_bias":
+        "int model, float bf, int n, int n_rounds, int n_iters, "
+        "float* params, float* R_bc, float* t_bc, float* R1, float* p1, "
+        "float* v1, float* bg1, float* ba1, float* dT, float* dR, "
+        "float* dV, float* dP, float* JRg, float* JVg, float* JVa, "
+        "float* JPg, float* JPa, float* bias, float* LT, float* R2, "
+        "float* p2, float* v2, float* X, float* uv, float* u_right, "
+        "float* sigma2, uint8_t* mask, float* walk, float* g, "
+        "float* state, uint8_t* inlier, int* n_inliers, float* params2, "
+        "float* T_rl, float* right, uint8_t* inlier_r, int* n_right, "
+        "void* stream",
+    "msslam_patch_gather_f32":
+        "float* canvas, int* bi, int* ys, int* xs, float* out, int n, "
+        "int B, int H, int Wc, void* stream",
+    "msslam_patch_gather_bf16":
+        "__nv_bfloat16* canvas, int* bi, int* ys, int* xs, float* out, "
+        "int n, int B, int H, int Wc, void* stream",
+}
 
 
-def test_pose_opt_launch_args_match_the_c_interface():
-    """5 scalars, 11 pointers, the rig's 5 (null without one) and the
-    stream, each of the ctypes type of its C declaration."""
-    path = os.path.join(_native._CSRC, "pose_opt.cu")
-    with open(path) as f:
-        params = _c_params(f.read(), "msslam_pose_opt")
-    want = [ctypes.c_void_p if "*" in p else
-            ctypes.c_float if p.startswith("float") else ctypes.c_int
-            for p in params]
-    assert pose_opt.ARGTYPES == want
-    args, kw, _ = scenario(torch.device("cpu"), N=30, model=1, rig=True)
-    plain, _, none = pose_opt._launch_args(*args[:10], 4, 10)
-    call, _, inlier_r = pose_opt._launch_args(*args[:10], 4, 10, **kw)
-    assert len(plain) == len(call) == len(want) == 22
-    assert plain[-6:-1] == (None,) * 5 and none is None
-    assert None not in call[-6:-1] and inlier_r is not None
+def _wrapper_call(entry: str, rig: bool = True):
+    """(Entry, the wrapper's arguments by name) of an entry point on small
+    CPU tensors: with a rig where the entry point takes one, unless not
+    `rig`."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+    N = 30
+    rig_kw = dict(rig=cameras.Rig(params2=z(8), T=z(3, 4)),
+                  right=z(N, 3)) if rig else {}
+    if entry == "msslam_pose_opt":
+        args, _, _ = scenario(torch.device("cpu"), N=N, model=1)
+        return pose_opt.KERNEL, pose_opt._kernel_call(*args, 4, 10,
+                                                      **rig_kw)[0]
+    if entry == "msslam_pose_vel_bias":
+        from ms_slam_tpu_torch.ops import imu, inertial_opt
+        preint = imu.init_state(z(6))
+        return inertial_opt.KERNEL, inertial_opt._kernel_call(
+            1, z(8), 0.0, z(3, 3), z(3), z(3, 3), z(3), z(3), z(3), z(3),
+            preint, z(9, 9), z(3, 3), z(3), z(3), z(N, 3), z(N, 2), z(N),
+            z(N), z(N, dtype=torch.bool), z(6), 4, 6, z(3), **rig_kw)[0]
+    from ms_slam_tpu_torch.ops import orb
+    dtype = torch.bfloat16 if entry.endswith("bf16") else torch.float32
+    gather, kw, _ = orb._gather_call(z(2, 64, 256, dtype=dtype),
+                                     *[z(N, dtype=torch.int32)] * 3)
+    return gather, kw
+
+
+@pytest.mark.parametrize("entry", list(C_INTERFACES))
+def test_pose_opt_launch_args_match_the_c_interface(entry):
+    """The parameters read from each entry point's C declaration equal the
+    hand-written list, each bound to the ctypes type of its C type; the
+    wrapper's call names every one of them but the stream, and passes the
+    entry point's checks. A tracking kernel's rig pointers are null
+    without a rig and set with one."""
+    want = [p.split() for p in C_INTERFACES[entry].split(", ")]
+    kernel, call = _wrapper_call(entry)
+    assert kernel.name == entry
+    assert [list(p) for p in kernel.params] == want
+    fn = kernel.bind(type("CFunction", (), {})())
+    assert fn.argtypes == [ctypes.c_void_p if t.endswith("*") else
+                           ctypes.c_float if t == "float" else ctypes.c_int
+                           for t, _ in want]
+    assert fn.restype is ctypes.c_int
+    assert sorted(call) == sorted(n for _, n in want if n != "stream")
+    c_args = kernel.args(torch.device("cpu"), **call)
+    assert len(c_args) == len(want) and c_args[-1] is None   # no stream
+    rig_at = [i for i, (_, n) in enumerate(want) if n in kernel.optional]
+    assert all(c_args[i] is not None for i in rig_at)
+    if rig_at:
+        kernel, call = _wrapper_call(entry, rig=False)
+        c_args = kernel.args(torch.device("cpu"), **call)
+        assert [c_args[i] for i in rig_at] == [None] * 5
+        assert [want[i][1] for i in rig_at] == list(pose_opt.RIG_PARAMS)
+
+
+def test_native_entry_refuses_an_unknown_c_type_at_load(tmp_path,
+                                                        monkeypatch):
+    """A C type the binding has no rule for (here double) is refused when
+    the declaration is first read, before anything is built or bound."""
+    (tmp_path / "fake.cu").write_text(
+        'extern "C" int msslam_fake(const double* x, int n,\n'
+        '                           void* stream) { return 0; }\n')
+    monkeypatch.setattr(_native, "_CSRC", str(tmp_path))
+    entry = _native.Entry("fake", "msslam_fake")
+    with pytest.raises(ValueError, match="const double\\* x"):
+        entry.params
+    with pytest.raises(ValueError, match="no binding"):
+        entry.args(torch.device("cpu"), x=torch.zeros(3), n=3)
+
+
+def test_native_entry_refuses_null_for_a_required_pointer():
+    """None is a null pointer only for the parameters the wrapper declares
+    optional (the rig's); a missing or unknown name is refused too."""
+    kernel, call = _wrapper_call("msslam_pose_opt", rig=False)
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="X must be a tensor"):
+        kernel.args(cpu, **{**call, "X": None})
+    with pytest.raises(TypeError):
+        kernel.args(cpu, **{k: v for k, v in call.items() if k != "mask"})
+    with pytest.raises(TypeError):
+        kernel.args(cpu, **call, mask2=call["mask"])
+    with pytest.raises(ValueError, match="n must fit a C int"):
+        kernel.args(cpu, **{**call, "n": 2 ** 31})
+    assert len(kernel.args(cpu, **call)) == 22
 
 
 def test_native_sources_lists_included_headers():

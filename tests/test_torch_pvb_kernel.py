@@ -21,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from ms_slam_tpu_torch.ops import imu, inertial_opt
+from ms_slam_tpu_torch.ops import _native, imu, inertial_opt
+
+ENTRY = inertial_opt.KERNEL.name     # its launches in _native.calls
 
 torch.set_num_threads(1)       # one thread per test process: xdist workers
 try:                            # would otherwise fight over the cores
@@ -166,10 +168,10 @@ def test_pvb_kernel_against_plain_on_card(name):
     args, kw, (R_true, p_true) = scenario(dev, **CASES[name])
     if name == "one_step":
         kw.update(n_rounds=1, n_iters=1)
-    before = inertial_opt.pvb_kernel_launches
+    before = _native.calls[ENTRY]
     out = inertial_opt.pose_vel_bias_optimize(*args, **kw)
     torch.cuda.synchronize()
-    assert inertial_opt.pvb_kernel_launches == before + 1
+    assert _native.calls[ENTRY] == before + 1
     ref = inertial_opt.pose_vel_bias_optimize_plain(*args, **kw)
     for t in (out.R_wb, out.p_wb, out.v, out.bg, out.ba):
         assert torch.isfinite(t).all()
@@ -188,18 +190,18 @@ def test_pvb_kernel_refuses_float64_on_card():
     args, kw, _ = scenario(dev, N=64)
     args = list(args)
     args[14] = args[14].double()                     # X
-    before = inertial_opt.pvb_kernel_launches
+    before = _native.calls[ENTRY]
     with pytest.raises(ValueError, match="X must be"):
         inertial_opt.pose_vel_bias_optimize(*args, **kw)
-    assert inertial_opt.pvb_kernel_launches == before
+    assert _native.calls[ENTRY] == before
 
 
 def test_pvb_wrapper_takes_plain_version_on_cpu():
     args, kw, _ = scenario(torch.device("cpu"), N=200)
-    before = (inertial_opt.pvb_plain_calls, inertial_opt.pvb_kernel_launches)
+    before = (_native.calls["pose_vel_bias_optimize"], _native.calls[ENTRY])
     out = inertial_opt.pose_vel_bias_optimize(*args, **kw)
-    assert (inertial_opt.pvb_plain_calls,
-            inertial_opt.pvb_kernel_launches) == (before[0] + 1, before[1])
+    assert (_native.calls["pose_vel_bias_optimize"],
+            _native.calls[ENTRY]) == (before[0] + 1, before[1])
     ref = inertial_opt.pose_vel_bias_optimize_plain(*args, **kw)
     for a, b in zip(out, ref):      # inlier_r / n_right: None, no rig
         assert (a is None and b is None) or torch.equal(a, b)
@@ -222,21 +224,25 @@ def _refused(args, name):
     return args
 
 
+def _checked(args, kw):
+    """The wrapper's call (`_kernel_call`) through the entry point's checks,
+    on R2's device, without a launch: (C arguments, result)."""
+    LT = imu.sqrt_information(args[10]).transpose(-1, -2).contiguous()
+    call, out = inertial_opt._kernel_call(*args[:11], LT, *args[11:],
+                                          kw["walk_info"], 4, 6, kw["g"])
+    return inertial_opt.KERNEL.args(args[11].device, **call), out
+
+
 @pytest.mark.parametrize("name", ["float64", "strided", "mask_dtype",
                                   "short_params", "model"])
 def test_pvb_launch_args_refuse_what_the_kernel_cannot_take(name):
     """The checks in front of the launch, run on CPU tensors (they look at
     device, dtype, shape and layout only)."""
     args, kw, _ = scenario(torch.device("cpu"), N=50)
-    args = _refused(args, name)
-    LT = imu.sqrt_information(args[10]).transpose(-1, -2).contiguous()
     with pytest.raises(ValueError):
-        inertial_opt._launch_args(*args[:11], LT, *args[11:],
-                                  kw["walk_info"], 4, 6, kw["g"])
+        _checked(_refused(args, name), kw)
     # the inputs as the scenario made them pass
-    args, kw, _ = scenario(torch.device("cpu"), N=50)
-    call, out = inertial_opt._launch_args(*args[:11], LT, *args[11:],
-                                          kw["walk_info"], 4, 6, kw["g"])
+    call, out = _checked(args, kw)
     # 5 scalars, 32 pointers, the rig's 5 (null here) and the stream
     assert len(call) == 5 + 38 and out.inlier.shape == (50,)
     assert call[-6:-1] == (None,) * 5 and out.n_right is None

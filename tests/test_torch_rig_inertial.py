@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from ms_slam_tpu_torch.ops import inertial_opt
+from ms_slam_tpu_torch.ops import _native, inertial_opt
 
 from test_torch_pvb_kernel import _assert_close, scenario
 from test_torch_rig_rows import (KB8, P1, T_RL, observe, ref, rig,
@@ -138,10 +138,10 @@ def test_pvb_kernel_right_rows_on_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
     args, kw, _ = rig_scenario(dev)
-    before = inertial_opt.pvb_kernel_launches
+    before = _native.calls["msslam_pose_vel_bias"]
     out = inertial_opt.pose_vel_bias_optimize(*args, **kw)
     torch.cuda.synchronize()
-    assert inertial_opt.pvb_kernel_launches == before + 1
+    assert _native.calls["msslam_pose_vel_bias"] == before + 1
     plain = inertial_opt.pose_vel_bias_optimize_plain(*args, **kw)
     _assert_close(out, plain)
     assert int((out.inlier_r != plain.inlier_r).sum()) <= 2

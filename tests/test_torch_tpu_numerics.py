@@ -38,10 +38,14 @@ import torch
 
 from ms_slam_tpu.ops import orb as jorb
 from ms_slam_tpu.pipeline import frontend as jfe
+from ms_slam_tpu_torch.ops import _native
 from ms_slam_tpu_torch.ops import orb as torb
 from ms_slam_tpu_torch.pipeline import frontend as tfe
 from test_torch_frontend import BASELINE, FX, H, W, _pair
 from test_torch_orb import CFG_J, CFG_T, noisy_mondrian
+
+# the calls that took the gather's plain version, in _native.calls
+PLAIN = "extract_patches_canvas"
 
 torch.set_num_threads(1)       # one thread per test process: xdist workers
 try:                            # would otherwise fight over the cores
@@ -123,9 +127,9 @@ def test_patch_gather_bf16_vs_interpreted_pallas(bf16_gather):
     """The port's gather of a bf16 canvas (the wrapper on CPU tensors: the
     plain version, widened) against the reference's Pallas kernel, run
     interpreted on the input it is given on its chip."""
-    before = torb.patch_gather_plain_calls
+    before = _native.calls[PLAIN]
     out = torb.extract_patches_canvas(*bf16_gather["args"])
-    assert torb.patch_gather_plain_calls == before + 1
+    assert _native.calls[PLAIN] == before + 1
     assert out.dtype == torch.float32 and out.shape == (40, 45, 45)
     assert bf16_gather["pallas"].dtype == np.float32
     np.testing.assert_array_equal(out.numpy(), bf16_gather["pallas"])
